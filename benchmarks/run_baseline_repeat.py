@@ -4,7 +4,7 @@ The headline vs_baseline multiplier in bench.py divides by this number, so
 it gets a multi-repeat measurement at a sample size large enough to
 amortize the reference's per-call setup (VERDICT r3 ask #7; round-2 cache
 was a single 384-user run). Refreshes benchmarks/baseline_reference.json
-(mean users/s + spread). CPU-only — safe to run while the TPU is busy.
+(mean users/s + spread). CPU-only: it never opens the GPU.
 
     python benchmarks/run_baseline_repeat.py
 """

@@ -8,7 +8,7 @@ meshes and inspects the optimized HLO for inter-device communication.
 
 - Forward rendering: ZERO collectives -> users/s scales linearly with
   chips by construction (the >80%-linear target is met trivially; the
-  only cross-chip traffic on a real pod would be host input distribution).
+  only cross-device traffic on real GPUs would be host input distribution).
 - Training step: the only collectives are the shared-parameter gradient
   all-reduces, whose payload is a few hundred bytes (panel rotation +
   spacing) — independent of the user count, so scaling efficiency

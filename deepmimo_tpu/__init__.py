@@ -1,8 +1,8 @@
-"""DeepMIMO-TPU: a TPU-native site-specific MIMO channel generation framework.
+"""DeepMIMO in JAX: a site-specific MIMO channel generation framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the DeepMIMO toolchain: ray-tracer
 outputs -> standardized scenarios -> batched, differentiable, sharded MIMO
-channel synthesis on TPU.
+channel synthesis on the GPU.
 """
 
 __version__ = "0.1.0"

@@ -21,7 +21,7 @@ from .utils import (zip as zip_folder, unzip, get_scenario_folder,
                     get_scenarios_dir, check_scen_name)
 
 HEADERS = {
-    "User-Agent": "DeepMIMO-TPU/0.1",
+    "User-Agent": "DeepMIMO-JAX/0.1",
     "Accept": "*/*",
 }
 

@@ -1,9 +1,9 @@
-"""Global configuration singleton for DeepMIMO-TPU.
+"""Global configuration singleton.
 
 Environment-level settings (scenario folder locations, ray-tracer versions,
 device preferences). Mirrors the capability of the reference config singleton
-(reference deepmimo/config.py:36-165) with TPU-relevant additions: compute
-dtype, default mesh axis names, and bench knobs.
+(reference deepmimo/config.py:36-165) with compute additions: dtype, path-sum
+precision, default mesh axis names, streaming budgets.
 
 Usage::
 
@@ -17,7 +17,6 @@ Usage::
 
 from __future__ import annotations
 
-import os
 from typing import Any, Optional
 
 from . import consts as c
@@ -35,35 +34,29 @@ class DeepMIMOConfig:
         "aodt_version": c.RAYTRACER_VERSION_AODT,
         # Scenario storage
         "scenarios_folder": c.SCENARIOS_FOLDER,
-        # Compute settings (TPU-native additions)
+        # Compute settings
         "use_gpu": False,                 # kept for API parity; unused
         "compute_dtype": "complex64",     # channel output dtype
-        "render_backend": "fused",        # path-sum backend: fused|pallas|xla
         "planes_layout": "packed",        # H plane layout: packed|stacked
-        # Path-sum matmul precision: "float32" = f32-grade accumulation
-        # (3 bf16 MXU passes; ~5e-6 max rel err vs the f64 oracle),
-        # "bfloat16" = 1 fast pass (~3e-3 err), "highest" = 6 passes.
+        # Path-sum precision: "float32" = full float32 products in XLA and
+        # three TF32 passes in the fused kernel, "bfloat16" = bf16
+        # operands, "highest" = full float32 everywhere. With "float32",
+        # max |dH| / max |H| against the float64 oracle at asu-campus scale
+        # on an H100 is 1.4e-5 to 2.0e-5 through the kernel and through the
+        # plain XLA path alike (float32 phases of ~300 rad bound both);
+        # chip_smoke.py holds both to 5e-5.
         "matmul_dtype": "float32",
         # Planes-renderer output precision: "bfloat16" halves H's output
-        # bytes (the binding HBM-write floor of the fused kernel, ~2^-8
-        # relative rounding) — a serving mode for NN consumers. The
-        # canonical complex outputs and parity tests stay float32.
+        # bytes (~2^-8 relative rounding) — a serving mode for NN
+        # consumers. The canonical complex outputs and parity tests stay
+        # float32.
         "planes_out_dtype": "float32",
-        # Fused-kernel layout debug knobs. These flow into ChannelConfig
-        # (params.to_config) so they participate in every jit cache key —
-        # toggling after a trace RETRACES instead of silently reusing the
-        # stale kernel (round-4 ADVICE: module globals read at trace time
-        # were outside the cache key). Env vars only seed the defaults at
-        # import; set via config.set(...) afterwards.
-        "kernel_no_pack": bool(int(os.environ.get("DM_RENDER_NO_PACK",
-                                                  "0"))),
-        "kernel_pack_first": bool(int(os.environ.get(
-            "DM_RENDER_PACK_FIRST", "0"))),
         "user_block": 16384,              # users per block when streaming to host
         # compute_channels renders in ONE dispatch when the output tensor
         # fits this budget (bytes); larger outputs stream over user_block
-        # blocks with readback overlapped against compute.
-        "max_device_output_bytes": 6_000_000_000,
+        # blocks with readback overlapped against compute. None derives
+        # it from the device's memory (generator.dataset.output_budget).
+        "max_device_output_bytes": None,
         # Host-memory cap for the [n_ue, M_rx, M_tx, n_paths] array
         # response product presentation attribute (it is inherently
         # O(users x antennas^2 x paths); above this it raises with
@@ -124,7 +117,7 @@ class DeepMIMOConfig:
         self._data = dict(self._DEFAULTS)
 
     def print_config(self) -> None:
-        print("DeepMIMO-TPU configuration:")
+        print("DeepMIMO configuration:")
         for k in sorted(self._data):
             print(f"  {k}: {self._data[k]}")
 

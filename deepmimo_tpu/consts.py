@@ -1,4 +1,4 @@
-"""Schema constants for the DeepMIMO-TPU framework.
+"""Schema constants for the DeepMIMO framework.
 
 These string keys define the on-disk scenario format (params.json keys, matrix
 file names) and the channel-generation parameter schema. The values must match

@@ -4,7 +4,7 @@
 scenario toolchain (reference deepmimo/generator/channel.py:20-139) so user
 code ports unchanged, and adds ``to_config()`` which splits the parameters
 into the static ``ChannelConfig`` + differentiable ``AntennaPanel`` pytrees
-consumed by the TPU renderer.
+consumed by the renderer.
 """
 
 from __future__ import annotations
@@ -153,13 +153,9 @@ class ChannelGenParameters(DotDict):
             carrier_freq=float(self.get(c.PARAMSET_CARRIER_FREQ, 3.5e9)),
             doppler_times=tuple(float(t) for t in times),
             dtype=dtype,
-            backend=_config.get("render_backend", "fused"),
             planes_layout=_config.get("planes_layout", "packed"),
             matmul_dtype=_config.get("matmul_dtype", "float32"),
             out_dtype=_config.get("planes_out_dtype", "float32"),
-            kernel_no_pack=bool(_config.get("kernel_no_pack", False)),
-            kernel_pack_first=bool(_config.get("kernel_pack_first",
-                                               False)),
         )
 
         if ue_rotation is None:

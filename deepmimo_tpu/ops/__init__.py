@@ -1,4 +1,4 @@
-"""TPU-native compute core: pure-JAX (and Pallas) channel synthesis ops.
+"""Compute core: pure-JAX (and one Pallas GPU kernel) channel synthesis ops.
 
 All functions here are pure, jit-friendly (static shapes, no data-dependent
 Python control flow), differentiable w.r.t. their continuous inputs, and use
@@ -21,7 +21,7 @@ from .geometry import (
 from .patterns import pattern_gain, PATTERN_REGISTRY
 from .channel import (render_channels, render_channels_planes,
                       render_channels_and_grads, render_beam_gains,
-                      render_beam_gains_polar, beam_gain_eligible)
+                      render_beam_gains_polar, fused_render_eligible)
 
 __all__ = [
     "PathData", "ChannelConfig", "AntennaPanel",
@@ -30,5 +30,5 @@ __all__ = [
     "pattern_gain", "PATTERN_REGISTRY",
     "render_channels", "render_channels_planes",
     "render_channels_and_grads", "render_beam_gains",
-    "render_beam_gains_polar", "beam_gain_eligible",
+    "render_beam_gains_polar", "fused_render_eligible",
 ]

@@ -11,12 +11,14 @@ OFDM path constants -> path sum (reference deepmimo/generator/channel.py:
 141-288 and dataset.py:224-417) — as one pure, jitted, differentiable
 function with static shapes.
 
-TPU design notes:
-- The computation is HBM-bandwidth-bound on writing H (arithmetic intensity
-  ~= n_paths flops/byte << the MXU ridge point), so the renderer is
-  structured to write H exactly once and keep every intermediate O(P/K)
-  or O(P/(R*T)) relative to H. The path sum is a batched complex matmul
-  (R*T, P) x (P, K) that XLA maps onto the MXU.
+Design notes:
+- The computation is bound by device-memory bandwidth on writing H
+  (arithmetic intensity ~= n_paths flops/byte, far below the tensor cores'
+  ridge point), so the renderer writes H exactly once and keeps every
+  intermediate O(P/K) or O(P/(R*T)) relative to H. The path sum is a
+  batched complex matmul (R*T, P) x (P, K). On a GPU, configs that
+  :func:`fused_render_eligible` accepts render through one fused kernel
+  (ops/pallas/render.py); everything else is plain XLA.
 - Validity masks (not NaNs) gate padded path slots; gradients flow only
   through real paths.
 - No data-dependent shapes: paths are padded to cfg.num_paths, subcarrier
@@ -93,17 +95,22 @@ def _rd(cfg: ChannelConfig):
     return cfg.rdtype
 
 
-def _xla_precision(cfg: ChannelConfig):
-    """Matmul precision for XLA (non-Pallas) path sums.
+def _xla_precision(cfg: ChannelConfig, complex_dot: bool = False):
+    """Dot precision for the XLA (non-kernel) path sums.
 
-    TPU f32 matmuls default to ONE bf16 MXU pass (~2^-9 relative error —
-    measured 2.9e-3 vs the f64 oracle, benchmarks/perf_precision.py);
-    matmul_dtype "float32" therefore requests HIGH (3 passes, ~f32-grade,
-    the XLA analogue of the fused kernel's manual hi/lo split). No-op on
-    CPU, which always computes full f32.
+    A float32 product left at DEFAULT precision runs in TF32 on a GPU's
+    tensor cores (about 3 decimal digits), so "float32" and "highest" name
+    the full float32 algorithm explicitly for real operands. Dots of
+    complex operands and complex128 renders (the parity path) take the
+    HIGHEST precision enum instead: dot-algorithm presets do not describe
+    complex products. "bfloat16" and "default" leave the choice to the
+    operand dtype and XLA.
     """
-    return {"float32": jax.lax.Precision.HIGH,
-            "highest": jax.lax.Precision.HIGHEST}.get(cfg.matmul_dtype)
+    if cfg.matmul_dtype not in ("float32", "highest"):
+        return None
+    if complex_dot or cfg.dtype == "complex128":
+        return jax.lax.Precision.HIGHEST
+    return jax.lax.DotAlgorithmPreset.F32_F32_F32
 
 
 def _ofdm_path_gains(cfg: ChannelConfig, powers_lin, delays, phase_deg, valid,
@@ -153,7 +160,7 @@ def _ofdm_path_gains(cfg: ChannelConfig, powers_lin, delays, phase_deg, valid,
                           (d[:, None] * k_sel[None, :]).astype(_rd(cfg)))
             g = jnp.einsum("upd,dk->upk", path_const.astype(cfg.cdtype),
                            dft.astype(cfg.cdtype),
-                           precision=_xla_precision(cfg))
+                           precision=_xla_precision(cfg, complex_dot=True))
     return g.astype(cfg.cdtype)
 
 
@@ -178,9 +185,8 @@ def _compact_paths(cfg, paths: PathData, valid, powers_lin, aod_theta,
     reference generator/channel.py:287).
 
     Uses a cumsum-rank one-hot permutation applied as one batched matmul
-    instead of argsort + per-array gathers: measured ~100x cheaper on TPU
-    v5e (sorts lower to sorting networks, gathers to scalar loads; the
-    permutation matmul is exact — each output row selects one input).
+    instead of argsort + per-array gathers (the permutation matmul is
+    exact — each output row selects one input).
     """
     rd = _rd(cfg)
     u, p = valid.shape
@@ -200,7 +206,7 @@ def _compact_paths(cfg, paths: PathData, valid, powers_lin, aod_theta,
         arrs += [paths.doppler_vel, paths.doppler_acc]
     stacked = jnp.stack([a.astype(rd) for a in arrs], axis=-1)
     # HIGHEST: the permutation must be EXACT — each output row selects one
-    # input value; a 1-bf16-pass TPU dot would round every routed value.
+    # input value; a TF32 or bf16 dot would round every routed value.
     out = jnp.einsum("uds,usa->uda", onehot, stacked,
                      preferred_element_type=rd,
                      precision=jax.lax.Precision.HIGHEST)
@@ -217,7 +223,7 @@ def _compact_paths(cfg, paths: PathData, valid, powers_lin, aod_theta,
 
 
 # ============================================================================
-# Plane-based (real/imag) fast path — complex lowering is slow on TPU
+# Plane-based (real/imag) path: real matmuls, H written as planes
 # ============================================================================
 
 def _ofdm_gain_planes(cfg: ChannelConfig, powers_lin, delays, phase_deg,
@@ -246,9 +252,8 @@ def _ofdm_gain_planes(cfg: ChannelConfig, powers_lin, delays, phase_deg,
 def _path_sum_planes_ri(cfg: ChannelConfig, arx, atx, gr, gi):
     """H = sum_p (a_rx a_tx) g via four real batched matmuls -> (hr, hi).
 
-    Measured ~8x (f32) to ~20x (bf16 inputs) faster than the complex
-    einsum lowering on TPU v5e; accumulation is always float32. Returning
-    planes (not complex) also skips a full extra read+write of H.
+    Accumulation is always float32. Returning planes (not complex) skips
+    a full extra read+write of H.
     """
     (arx_r, arx_i), (atx_r, atx_i) = arx, atx
     u, r, p = arx_r.shape
@@ -262,7 +267,7 @@ def _path_sum_planes_ri(cfg: ChannelConfig, arx, atx, gr, gi):
         cast = lambda x: x.astype(jnp.bfloat16)
         er, ei, gr, gi = cast(er), cast(ei), cast(gr), cast(gi)
 
-    prec = None if cfg.matmul_dtype == "bfloat16" else _xla_precision(cfg)
+    prec = _xla_precision(cfg)
     mm = lambda a, b: jnp.einsum("uqp,upk->uqk", a, b,
                                  preferred_element_type=jnp.float32,
                                  precision=prec)
@@ -322,11 +327,13 @@ def _fused_n_snap(cfg: ChannelConfig) -> int:
 
 
 def _packed_layout(cfg: ChannelConfig) -> bool:
-    """Static: emit the packed [..., 2*S*K] plane layout? Requires opt-in
-    plus S*K % 64 == 0 (so the packed minor dim is 128-lane aligned — the
-    whole point) and the frequency domain."""
+    """Static: emit the packed [..., 2*S*K] plane layout? Requires opt-in,
+    the frequency domain, S*K % 64 == 0 (so hr and hi each fill whole
+    64-float rows) and the planes fast path (complex64, no sinc filter);
+    the other configs render complex H and stack its planes."""
     sk = len(cfg.selected_subcarriers) * _fused_n_snap(cfg)
     return (cfg.planes_layout == "packed" and cfg.freq_domain
+            and cfg.dtype == "complex64" and not cfg.rx_filter
             and sk % 64 == 0)
 
 
@@ -334,7 +341,7 @@ def _angles_needed(cfg: ChannelConfig) -> bool:
     """Static: does any stage need rotated ANGLES (vs unit vectors)?
 
     FoV masks and non-isotropic patterns are functions of (theta', phi');
-    the fused kernel itself needs only the rotated wave-vector components,
+    the fused render itself needs only the rotated wave-vector components,
     which rotate_unit_vec provides without arccos/atan2/second-sincos.
     """
     fov_on = ((cfg.bs_fov is not None and not is_full_fov(cfg.bs_fov)) or
@@ -343,26 +350,34 @@ def _angles_needed(cfg: ChannelConfig) -> bool:
             or cfg.ue_pattern != "isotropic")
 
 
-def _fused_render_eligible(cfg: ChannelConfig) -> bool:
-    from .pallas.render import pick_user_tile
-    if not (cfg.freq_domain and not cfg.rx_filter
-            and cfg.dtype == "complex64" and _k_progression(cfg)):
-        return False
-    return pick_user_tile(0, cfg.ue_shape, cfg.bs_shape, cfg.num_paths,
-                          len(cfg.selected_subcarriers),
-                          _fused_n_snap(cfg),
-                          mm_dtype=cfg.matmul_dtype,
-                          no_pack=cfg.kernel_no_pack) > 0
+def fused_render_eligible(cfg: ChannelConfig) -> bool:
+    """Static: can this config render from per-path scalars?
+
+    The one eligibility rule for the fused render (OFDM, no sinc filter,
+    complex64, an arithmetic subcarrier selection). Every entry point
+    consults it, through :func:`_use_render_kernel` or directly for the
+    dual-polar single-dispatch path.
+    """
+    return bool(cfg.freq_domain and not cfg.rx_filter
+                and cfg.dtype == "complex64"
+                and _k_progression(cfg) is not None)
+
+
+def _use_render_kernel(cfg: ChannelConfig) -> bool:
+    """Static: render through the fused GPU kernel?
+
+    On a GPU, for every eligible config (the kernel beats the plain XLA
+    path end to end there); plain XLA everywhere else. The kernel runs
+    compiled; the Pallas interpreter is for tests that call it directly.
+    """
+    return jax.default_backend() == "gpu" and fused_render_eligible(cfg)
 
 
 def _fused_path_scalars(cfg: ChannelConfig, paths: PathData, valid,
                         powers_lin):
-    """(amp [U,P], psi [U,S*P], omega [U,P]) for the fused kernels.
+    """(amp [U,P], psi [U,S*P], omega [U,P]) for the fused render.
 
-    All per-path math runs on FLAT [U*P] views: [U, P] f32 arrays are
-    (8, 128)-tile padded on TPU (a 5.1x physical-bytes tax at P=25), so
-    staying packed until the kernel-boundary reshape cuts the prologue
-    from ~5.4 ms to ~1 ms per 131k-user chunk (benchmarks/SOL.md).
+    All per-path math runs on flat [U*P] views until the final reshape.
     Shared by the render and beam-gain entry points.
     """
     rd = _rd(cfg)
@@ -400,58 +415,36 @@ def _fused_path_scalars(cfg: ChannelConfig, paths: PathData, valid,
     return amp.reshape(u, p), psi, omega
 
 
-def _render_fused_planes(cfg: ChannelConfig, paths: PathData, bs, ue,
-                         valid, powers_lin, gry, grz, gty, gtz):
-    """Fully-fused OFDM render: per-path scalars -> H planes, one kernel.
+def _scalar_render(cfg: ChannelConfig, gry, grz, gty, gtz, amp, psi,
+                   omega, packed: bool):
+    """H planes from per-path scalars: [U, Q, 2*S*K] packed or
+    [2, U, Q, S*K] stacked.
 
-    HBM traffic collapses to ~the output tensor; array responses, E, g and
-    matmul partials stay in VMEM (see ops/pallas/render.py). All Doppler
-    snapshots render in the SAME kernel call: per-snapshot phases ride the
-    subcarrier axis, so panel responses and subcarrier tables are built
-    once instead of once per snapshot. ``gry/grz/gty/gtz`` are the RX/TX
-    wave-vector phase steps kd*y', kd*z' in the rotated frame (computed by
-    the caller — from rotated angles, or directly via rotate_unit_vec when
-    no stage needs angle space). Returns one (hr, hi) pair [U, R, T, K]
-    per snapshot.
+    The fused kernel on a GPU (one store of H; ops/pallas/render.py),
+    the plain XLA form of the same math elsewhere.
     """
-    from .pallas.render import fused_render, pick_user_tile
+    from .pallas.render import _reference_impl, fused_render
 
-    rd = _rd(cfg)
-    u, p = paths.delay_s.shape
-    valid_f = valid.reshape(-1)
-    z = lambda x: jnp.where(valid_f, x.reshape(-1), 0.0).astype(rd)
-    amp, psi, omega = _fused_path_scalars(cfg, paths, valid, powers_lin)
     n_k = len(cfg.selected_subcarriers)
-    n_s = _fused_n_snap(cfg)
-    ut = pick_user_tile(u, cfg.ue_shape, cfg.bs_shape,
-                        cfg.num_paths, n_k, n_s,
-                        mm_dtype=cfg.matmul_dtype,
-                        no_pack=cfg.kernel_no_pack)
-    interpret = jax.default_backend() == "cpu"
-    packed = _packed_layout(cfg)
-    sh = lambda x: x.reshape(u, p)
-    h = fused_render(sh(z(gry)), sh(z(grz)), sh(z(gty)), sh(z(gtz)),
-                     amp, psi, omega,
-                     cfg.ue_shape, cfg.bs_shape, n_k,
-                     user_tile=ut, interpret=interpret,
-                     mm_dtype=cfg.matmul_dtype, packed=packed,
-                     out_dtype=cfg.out_dtype,
-                     no_pack=cfg.kernel_no_pack,
-                     pack_first=cfg.kernel_pack_first)
-    r = cfg.ue_shape[0] * cfg.ue_shape[1]
-    t = cfg.bs_shape[0] * cfg.bs_shape[1]
-    if packed:                       # [U, Q, 2*S*K] -> [U, R, T, 2*S*K]
-        return h.reshape(u, r, t, 2 * n_s * n_k)
-    return h.reshape(2, u, r, t, n_s, n_k)
+    if _use_render_kernel(cfg):
+        return fused_render(gry, grz, gty, gtz, amp, psi, omega,
+                            cfg.ue_shape, cfg.bs_shape, n_k,
+                            mm_dtype=cfg.matmul_dtype, packed=packed,
+                            out_dtype=cfg.out_dtype)
+    hr, hi = _reference_impl(gry, grz, gty, gtz, amp, psi, omega,
+                             cfg.ue_shape, cfg.bs_shape, n_k,
+                             precision=_xla_precision(cfg))
+    h = jnp.concatenate((hr, hi), -1) if packed else jnp.stack((hr, hi))
+    return h.astype(cfg.out_dtype)
 
 
 def _wavevec_inputs(cfg: ChannelConfig, paths: PathData, bs, ue):
-    """(valid, powers_lin, gry, grz, gty, gtz) for the fused kernels.
+    """(valid, powers_lin, gry, grz, gty, gtz) for the fused render.
 
-    Mirrors the fused branch of :func:`render_channels_planes`: angle
-    space (rotated theta/phi + FoV + pattern gains) is only entered when
-    a stage needs it; otherwise rotate_unit_vec provides the rotated
-    wave-vector components directly on flat [U*P] views.
+    Angle space (rotated theta/phi + FoV + pattern gains) is only entered
+    when a stage needs it; otherwise rotate_unit_vec provides the rotated
+    wave-vector components directly on flat [U*P] views (per-user [U, 3]
+    rotations keep the [U, P] shape to broadcast per row).
     """
     from .geometry import array_response_phase, rotate_unit_vec
 
@@ -487,18 +480,27 @@ def _wavevec_inputs(cfg: ChannelConfig, paths: PathData, bs, ue):
     return valid, powers_lin, gry, grz, gty, gtz
 
 
-def beam_gain_eligible(cfg: ChannelConfig, n_beams: int) -> bool:
-    """Static: can beam gains render through the fused consumer kernel?"""
-    from .pallas.beamgain import pick_user_tile_bg
-    if not (cfg.freq_domain and not cfg.rx_filter
-            and cfg.dtype == "complex64" and _k_progression(cfg)):
-        return False
-    return pick_user_tile_bg(0, cfg.ue_shape, cfg.bs_shape, n_beams,
-                             cfg.num_paths,
-                             len(cfg.selected_subcarriers),
-                             _fused_n_snap(cfg),
-                             mm_dtype=cfg.matmul_dtype,
-                             no_pack=cfg.kernel_no_pack) > 0
+def _scalar_inputs(cfg: ChannelConfig, paths: PathData, bs, ue):
+    """The fused render's 7 inputs: (gry, grz, gty, gtz [U, P], amp [U, P],
+    psi [U, S*P], omega [U, P]), zero on invalid paths."""
+    valid, powers_lin, gry, grz, gty, gtz = _wavevec_inputs(cfg, paths,
+                                                            bs, ue)
+    u, p = paths.delay_s.shape
+    valid_f = valid.reshape(-1)
+    z = lambda x: jnp.where(valid_f, x.reshape(-1), 0.0).astype(_rd(cfg)) \
+        .reshape(u, p)
+    amp, psi, omega = _fused_path_scalars(cfg, paths, valid, powers_lin)
+    return z(gry), z(grz), z(gty), z(gtz), amp, psi, omega
+
+
+def _check_beam_gain_cfg(cfg: ChannelConfig, name: str) -> None:
+    """Beam gains fold the codebook into the scalar (fused) formulation:
+    refuse configs it does not express instead of returning wrong maps."""
+    if not (cfg.freq_domain and not cfg.rx_filter and _k_progression(cfg)):
+        raise ValueError(
+            f"{name} requires the frequency domain, no receive filter "
+            "(rx_filter=0) and an arithmetic subcarrier selection; render "
+            "channels and fold the codebook downstream for other configs.")
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
@@ -508,76 +510,30 @@ def render_beam_gains(paths: PathData, bs: AntennaPanel, ue: AntennaPanel,
     """Codebook beam-gain maps G[U, R*B, S*K] WITHOUT materializing H.
 
     G[u, r, b, k] = |sum_t conj(w[b, t]) H[u, r, t, k]|^2 with the
-    codebook folded INTO the fused path-sum (ops/pallas/beamgain.py):
-    H never reaches HBM, the output shrinks by T/B x2 vs planes, and all
-    per-antenna VPU stages run at B beams instead of T antennas. The
-    reference computes beam maps host-side from full H
-    (reference docs/manual beam-selection examples); this is the
-    TPU-native serving path for beam training / initial access /
-    coverage maps.
+    codebook folded into the TX response before the path sum
+    (ops/beamgain.py): H at T antennas is never formed, and the output
+    is T/B x2 smaller than the planes. The reference computes beam maps
+    host-side from full H (reference docs/manual beam-selection
+    examples); this is the serving path for beam training / initial
+    access / coverage maps.
 
     Args:
         wr/wi: codebook real/imag planes [B, T] (conj applied inside,
             matching ``abs(h @ codebook.conj().T)**2`` consumer code).
 
-    Falls back to the differentiable XLA oracle on configs whose tile
-    does not fit VMEM. Frequency-domain, arithmetic subcarrier
+    Frequency-domain, no receive filter, arithmetic subcarrier
     selections only.
     """
-    from .pallas.beamgain import (fused_beam_gain, beam_gain_reference,
-                                  pick_user_tile_bg)
+    from .beamgain import beam_gain
 
-    if not cfg.freq_domain or not _k_progression(cfg):
-        raise ValueError(
-            "render_beam_gains requires the frequency domain and an "
-            "arithmetic subcarrier selection; render channels and fold "
-            "the codebook downstream for other configs.")
+    _check_beam_gain_cfg(cfg, "render_beam_gains")
     paths = paths.trim_paths(cfg.num_paths)
-    valid, powers_lin, gry, grz, gty, gtz = _wavevec_inputs(cfg, paths,
-                                                            bs, ue)
-    u, p = paths.delay_s.shape
     rd = _rd(cfg)
-    valid_f = valid.reshape(-1)
-    z = lambda x: jnp.where(valid_f, x.reshape(-1), 0.0).astype(rd) \
-        .reshape(u, p)
-    amp, psi, omega = _fused_path_scalars(cfg, paths, valid, powers_lin)
-    n_k = len(cfg.selected_subcarriers)
-    n_s = _fused_n_snap(cfg)
-    n_beams = wr.shape[0]
-    wr = jnp.asarray(wr, rd)
-    wi = jnp.asarray(wi, rd)
-
-    ut = pick_user_tile_bg(u, cfg.ue_shape, cfg.bs_shape, n_beams,
-                           cfg.num_paths, n_k, n_s,
-                           mm_dtype=cfg.matmul_dtype,
-                           no_pack=cfg.kernel_no_pack)
-    args = (z(gry), z(grz), z(gty), z(gtz), amp, psi, omega, wr, wi,
-            cfg.ue_shape, cfg.bs_shape, n_k)
-    if ut == 0 or cfg.backend not in ("pallas", "fused"):
-        return beam_gain_reference(*args)
-    interpret = jax.default_backend() == "cpu"
-    return fused_beam_gain(*args, user_tile=ut, interpret=interpret,
-                           mm_dtype=cfg.matmul_dtype,
-                           no_pack=cfg.kernel_no_pack,
-                           pack_first=cfg.kernel_pack_first)
-
-
-def polar_fused_eligible(cfg: ChannelConfig, n_pol: int = 4) -> bool:
-    """Static: can the four polarizations render in ONE fused dispatch?
-
-    Same gates as :func:`_fused_render_eligible`, with the kernel's
-    snapshot axis carrying n_pol * n_snapshots slots (each polarization
-    rides the axis with its own per-path amplitudes and phases).
-    """
-    from .pallas.render import pick_user_tile
-    if not (cfg.freq_domain and not cfg.rx_filter
-            and cfg.dtype == "complex64" and _k_progression(cfg)):
-        return False
-    return pick_user_tile(0, cfg.ue_shape, cfg.bs_shape, cfg.num_paths,
-                          len(cfg.selected_subcarriers),
-                          n_pol * _fused_n_snap(cfg),
-                          mm_dtype=cfg.matmul_dtype,
-                          no_pack=cfg.kernel_no_pack) > 0
+    return beam_gain(*_scalar_inputs(cfg, paths, bs, ue),
+                     jnp.asarray(wr, rd), jnp.asarray(wi, rd),
+                     cfg.ue_shape, cfg.bs_shape,
+                     len(cfg.selected_subcarriers),
+                     precision=_xla_precision(cfg))
 
 
 def _polar_packed_layout(cfg: ChannelConfig, n_pol: int = 4) -> bool:
@@ -635,7 +591,7 @@ def _polar_fused_inputs(cfg: ChannelConfig, paths: PathData, bs, ue,
         gry, grz = kd_ue * ry, kd_ue * rz
         gty, gtz = kd_bs * ty, kd_bs * tz
 
-    # Shared per-path scalars (flat [U*P] views — see _render_fused_planes)
+    # Shared per-path scalars (flat [U*P] views — see _fused_path_scalars)
     fl = lambda x: x.reshape(-1)
     valid_f = fl(valid)
     z = lambda x: jnp.where(valid_f, fl(x), 0.0).astype(rd).reshape(u, p)
@@ -691,41 +647,25 @@ def render_beam_gains_polar(paths: PathData, bs: AntennaPanel,
     """Per-polarization beam-gain maps G[U, R*B, N_pol*S*K], ONE dispatch.
 
     Composes the two single-dispatch tricks: the polarization axis rides
-    the kernel slot axis with per-slot amplitudes AND phases (the
-    dual-polar layout), while the codebook folds into the path-sum so no
+    the slot axis with per-slot amplitudes AND phases (the dual-polar
+    layout), while the codebook folds into the path sum so no
     polarization's H is ever materialized. The reference would run four
     full generator passes and fold host-side. Slot axis is pol-major
     (slot = pol * S + s); slice G[..., ip*S*K:(ip+1)*S*K] per
     polarization.
     """
-    from .pallas.beamgain import (fused_beam_gain, beam_gain_reference,
-                                  pick_user_tile_bg)
+    from .beamgain import beam_gain
 
-    if not cfg.freq_domain or not _k_progression(cfg):
-        raise ValueError(
-            "render_beam_gains_polar requires the frequency domain and "
-            "an arithmetic subcarrier selection.")
+    _check_beam_gain_cfg(cfg, "render_beam_gains_polar")
     (u, p, gry, grz, gty, gtz, amp, psi, omega,
      st) = _polar_fused_inputs(cfg, paths, bs, ue, pol_power_dbw,
                                pol_phase_deg)
-    n_k = len(cfg.selected_subcarriers)
     rd = _rd(cfg)
-    n_beams = wr.shape[0]
-    wr = jnp.asarray(wr, rd)
-    wi = jnp.asarray(wi, rd)
-    ut = pick_user_tile_bg(u, cfg.ue_shape, cfg.bs_shape, n_beams,
-                           cfg.num_paths, n_k, st,
-                           mm_dtype=cfg.matmul_dtype,
-                           no_pack=cfg.kernel_no_pack)
-    args = (gry, grz, gty, gtz, amp, psi, omega, wr, wi,
-            cfg.ue_shape, cfg.bs_shape, n_k)
-    if ut == 0 or cfg.backend not in ("pallas", "fused"):
-        return beam_gain_reference(*args)
-    interpret = jax.default_backend() == "cpu"
-    return fused_beam_gain(*args, user_tile=ut, interpret=interpret,
-                           mm_dtype=cfg.matmul_dtype,
-                           no_pack=cfg.kernel_no_pack,
-                           pack_first=cfg.kernel_pack_first)
+    return beam_gain(gry, grz, gty, gtz, amp, psi, omega,
+                     jnp.asarray(wr, rd), jnp.asarray(wi, rd),
+                     cfg.ue_shape, cfg.bs_shape,
+                     len(cfg.selected_subcarriers),
+                     precision=_xla_precision(cfg))
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
@@ -733,16 +673,17 @@ def render_channels_planes_polar(paths: PathData, bs: AntennaPanel,
                                  ue: AntennaPanel, cfg: ChannelConfig,
                                  pol_power_dbw: jax.Array,
                                  pol_phase_deg: jax.Array) -> jax.Array:
-    """All polarizations in ONE fused dispatch (dual-polar device path).
+    """All polarizations in ONE dispatch (dual-polar device path).
 
     The reference renders {VV, VH, HH, HV} as four independent generator
     passes (deepmimo_v3/generator/python/generator.py:71-78) — 4x the
-    rotation/FoV/pattern/panel work. Here the polarization axis rides the
-    fused kernel's snapshot axis: rotations, FoV masks, pattern gains,
-    panel phasor recurrences and subcarrier tables are computed ONCE
-    (angles and delays are shared across polarizations — v3 semantics);
-    only the per-path amplitude/phase fold-in differs per polarization
-    via the kernel's per-snapshot amp support.
+    rotation/FoV/pattern/panel work. Here the polarization axis rides
+    the fused render's slot axis: rotations, FoV masks, pattern gains
+    and panel responses are computed ONCE (angles and delays are shared
+    across polarizations — v3 semantics); only the per-path
+    amplitude/phase differs per polarization, through per-slot
+    amplitudes. On a GPU this is one fused kernel; elsewhere the same
+    math in plain XLA.
 
     Args:
         paths: shared geometry (angles/delays/Doppler); its own
@@ -756,25 +697,18 @@ def render_channels_planes_polar(paths: PathData, bs: AntennaPanel,
         stacked: [2, U, R, T, N_pol, S, K].
     Unpack host-side with :func:`unpack_polar_planes_np`.
     """
-    from .pallas.render import fused_render, pick_user_tile
-
+    if not fused_render_eligible(cfg):
+        raise ValueError(
+            "render_channels_planes_polar requires a fused-render config "
+            "(OFDM, no rx_filter, complex64, arithmetic subcarrier "
+            "selection); render each polarization with render_channels.")
     (u, p, gry, grz, gty, gtz, amp, psi, omega,
      st) = _polar_fused_inputs(cfg, paths, bs, ue, pol_power_dbw,
                                pol_phase_deg)
     n_pol = pol_power_dbw.shape[0]
     n_k = len(cfg.selected_subcarriers)
-    ut = pick_user_tile(u, cfg.ue_shape, cfg.bs_shape, cfg.num_paths,
-                        n_k, st, mm_dtype=cfg.matmul_dtype,
-                        no_pack=cfg.kernel_no_pack)
-    interpret = jax.default_backend() == "cpu"
     packed = _polar_packed_layout(cfg, n_pol)
-    h = fused_render(gry, grz, gty, gtz,
-                     amp, psi, omega, cfg.ue_shape, cfg.bs_shape, n_k,
-                     user_tile=ut, interpret=interpret,
-                     mm_dtype=cfg.matmul_dtype, packed=packed,
-                     out_dtype=cfg.out_dtype,
-                     no_pack=cfg.kernel_no_pack,
-                     pack_first=cfg.kernel_pack_first)
+    h = _scalar_render(cfg, gry, grz, gty, gtz, amp, psi, omega, packed)
     r = cfg.ue_shape[0] * cfg.ue_shape[1]
     t = cfg.bs_shape[0] * cfg.bs_shape[1]
     if packed:
@@ -813,37 +747,6 @@ def unpack_polar_planes_np(arr, cfg: ChannelConfig, n_pol: int = 4):
     return h[:, :, :, :, 0, :] if h.ndim == 6 else h
 
 
-def _path_sum_pallas(cfg: ChannelConfig, arx, atx, powers_lin,
-                     paths: PathData, valid, t_snap):
-    """Fused Pallas path-sum: E/g intermediates never leave VMEM."""
-    from .pallas import fused_path_sum
-
-    n_fft = cfg.subcarriers
-    ts = 1.0 / cfg.bandwidth
-    k_sel = jnp.asarray(np.asarray(cfg.selected_subcarriers,
-                                   dtype=np.float64), dtype=_rd(cfg))
-    delay_n = paths.delay_s / ts
-    pvalid = valid & (delay_n < n_fft)
-    amp = jnp.where(pvalid, jnp.sqrt(powers_lin / n_fft), 0.0)
-    psi = jnp.deg2rad(paths.phase_deg)
-    if cfg.enable_doppler and paths.doppler_vel is not None:
-        t = paths.delay_s + t_snap
-        psi = psi - 2 * jnp.pi * cfg.carrier_freq * (
-            paths.doppler_vel * t / c.LIGHTSPEED +
-            paths.doppler_acc * (t * t) / (2 * c.LIGHTSPEED))
-    omega = (2 * jnp.pi / n_fft) * delay_n
-
-    (arx_r, arx_i), (atx_r, atx_i) = arx, atx
-    u, r, _ = arx_r.shape
-    t_ant = atx_r.shape[1]
-    # Interpreter mode on CPU (testing); compiled Mosaic kernel on TPU.
-    interpret = jax.default_backend() == "cpu"
-    hr, hi = fused_path_sum(arx_r, arx_i, atx_r, atx_i, amp, psi, omega,
-                            k_sel, interpret=interpret)
-    k = k_sel.shape[0]
-    return (hr + 1j * hi).astype(cfg.cdtype).reshape(u, r, t_ant, k)
-
-
 def _path_sum(a_rx, a_tx, g, cdtype, cfg=None):
     """H[u, r, t, k] = sum_p a_rx[u,r,p] a_tx[u,t,p] g[u,p,k].
 
@@ -855,7 +758,8 @@ def _path_sum(a_rx, a_tx, g, cdtype, cfg=None):
     e = (a_rx[:, :, None, :] * a_tx[:, None, :, :]).reshape(u, r * t, p)
     h = jnp.einsum("uqp,upk->uqk", e.astype(cdtype), g,
                    preferred_element_type=cdtype,
-                   precision=_xla_precision(cfg) if cfg else None)
+                   precision=(_xla_precision(cfg, complex_dot=True)
+                              if cfg else None))
     return h.reshape(u, r, t, g.shape[-1])
 
 
@@ -872,13 +776,13 @@ def render_channels_planes(paths: PathData, bs: AntennaPanel,
     Layout (decide with :func:`_packed_layout`, a static function of cfg):
     - stacked (default): [2, U, R, T, K(, T_t)]
     - packed (cfg.planes_layout == "packed", freq domain, S*K % 64 == 0):
-      [U, R, T, 2*S*K] with hr in the first minor half — the minor dim is
-      then 128-lane aligned, ~8x output-DMA bandwidth on TPU.
+      [U, R, T, 2*S*K] with hr in the first minor half.
 
     The serving-oriented output: float32 planes skip the complexification
-    pass (a full extra read+write of H) and transfer on runtimes that
-    cannot move complex arrays. Same configs as the fast path of
-    :func:`render_channels` (complex64, no sinc filter; both domains).
+    pass (a full extra read+write of H). Same configs as the fast path of
+    :func:`render_channels` (complex64, no sinc filter; both domains). On
+    a GPU, :func:`fused_render_eligible` configs render through the fused
+    kernel; the rest, and every config elsewhere, through plain XLA.
     """
     co = (lambda x: x) if cfg.out_dtype == "float32" else \
         (lambda x: x.astype(cfg.out_dtype))
@@ -886,78 +790,35 @@ def render_channels_planes(paths: PathData, bs: AntennaPanel,
         h = render_channels(paths, bs, ue, cfg)
         return co(jnp.stack((jnp.real(h), jnp.imag(h))))
 
-    from .geometry import (array_response_planes, array_response_phase,
-                           rotate_unit_vec)
+    from .geometry import array_response_planes
 
     paths = paths.trim_paths(cfg.num_paths)
-    use_fused = (cfg.backend in ("pallas", "fused")
-                 and cfg.freq_domain and _fused_render_eligible(cfg))
-    need_angles = (not use_fused) or _angles_needed(cfg)
+    snapshots = cfg.doppler_times if cfg.enable_doppler else (0.0,)
+    if _use_render_kernel(cfg):
+        # One kernel, all Doppler snapshots: per-snapshot phases ride the
+        # subcarrier axis (s-major), and H is stored exactly once.
+        packed = _packed_layout(cfg)
+        h = _scalar_render(cfg, *_scalar_inputs(cfg, paths, bs, ue), packed)
+        u, r, t = paths.delay_s.shape[0], cfg.n_rx_ant, cfg.n_tx_ant
+        if packed:                          # hr in the first minor half
+            return h.reshape(u, r, t, -1)
+        n_s = _fused_n_snap(cfg)
+        h = h.reshape(2, u, r, t, n_s, -1)               # [2, U, R, T, S, K]
+        return h[:, :, :, :, 0] if n_s == 1 else jnp.moveaxis(h, 4, 5)
 
-    if need_angles:
-        aod_theta, aod_phi, aoa_theta, aoa_phi = _rotated_angles(paths, bs,
-                                                                 ue)
-        valid = _fov_valid(cfg, paths.valid, aod_theta, aod_phi, aoa_theta,
-                           aoa_phi)
-        powers_lin = _powers_linear(cfg, paths, valid, aod_theta, aod_phi,
-                                    aoa_theta, aoa_phi)
-    else:
-        # Isotropic patterns + full-sphere FoV: angle space is never
-        # touched — the fused kernel consumes unit-vector phase steps.
-        # Flat [U*P] compute (packed layout; only the fused path consumes
-        # these, and it flattens all per-path inputs anyway).
-        valid = paths.valid
-        powers_lin = jnp.where(
-            valid.reshape(-1),
-            jnp.power(10.0, paths.power_dbw.reshape(-1) / 10.0), 0.0)
-
+    aod_theta, aod_phi, aoa_theta, aoa_phi = _rotated_angles(paths, bs, ue)
+    valid = _fov_valid(cfg, paths.valid, aod_theta, aod_phi, aoa_theta,
+                       aoa_phi)
+    powers_lin = _powers_linear(cfg, paths, valid, aod_theta, aod_phi,
+                                aoa_theta, aoa_phi)
     if not cfg.freq_domain and _td_compact_active(cfg):
         (paths, valid, powers_lin, aod_theta, aod_phi, aoa_theta,
          aoa_phi) = _compact_paths(cfg, paths, valid, powers_lin,
                                    aod_theta, aod_phi, aoa_theta, aoa_phi)
-
-    if use_fused:
-        arx = atx = None  # array responses are built in-VMEM by the kernel
-    else:
-        arx = array_response_planes(cfg.ue_shape, ue.spacing, aoa_theta,
-                                    aoa_phi, valid)
-        atx = array_response_planes(cfg.bs_shape, bs.spacing, aod_theta,
-                                    aod_phi, valid)
-
-    snapshots = cfg.doppler_times if cfg.enable_doppler else (0.0,)
-    if use_fused:
-        kd_ue = 2 * jnp.pi * ue.spacing
-        kd_bs = 2 * jnp.pi * bs.spacing
-        if need_angles:
-            _, gry, grz = array_response_phase(aoa_theta, aoa_phi, kd_ue)
-            _, gty, gtz = array_response_phase(aod_theta, aod_phi, kd_bs)
-        else:
-            # Global (non-per-user) rotations broadcast against flat
-            # [U*P] angle views — packed layout, no (8, 128) lane-pad tax
-            # (per-user [U, 3] rotations need the [U, P] shape to
-            # broadcast per row).
-            flat_ok = (jnp.asarray(ue.rotation_deg).ndim == 1 and
-                       jnp.asarray(bs.rotation_deg).ndim == 1)
-            v = (lambda x: x.reshape(-1)) if flat_ok else (lambda x: x)
-            _, ry, rz = rotate_unit_vec(ue.rotation_deg,
-                                        v(paths.aoa_el_deg),
-                                        v(paths.aoa_az_deg))
-            _, ty, tz = rotate_unit_vec(bs.rotation_deg,
-                                        v(paths.aod_el_deg),
-                                        v(paths.aod_az_deg))
-            gry, grz = kd_ue * ry, kd_ue * rz
-            gty, gtz = kd_bs * ty, kd_bs * tz
-        h6 = _render_fused_planes(cfg, paths, bs, ue, valid,
-                                  powers_lin, gry, grz, gty, gtz)
-        if _packed_layout(cfg):
-            # Packed layout [U, R, T, 2*S*K] straight from the kernel:
-            # hr is the first minor half (see fused_render docstring).
-            return h6
-        two, u, r, t, n_s, n_k = h6.shape               # [2, U, R, T, S, K]
-        if not (cfg.enable_doppler and len(snapshots) > 1):
-            # Free squeeze: the kernel's stacked buffer IS the output.
-            return h6.reshape(2, u, r, t, n_k)
-        return jnp.moveaxis(h6, 4, 5)                   # time axis last
+    arx = array_response_planes(cfg.ue_shape, ue.spacing, aoa_theta,
+                                aoa_phi, valid)
+    atx = array_response_planes(cfg.bs_shape, bs.spacing, aod_theta,
+                                aod_phi, valid)
 
     outs = []
     for t_snap in snapshots:
@@ -1068,10 +929,7 @@ def render_channels(paths: PathData, bs: AntennaPanel, ue: AntennaPanel,
 
     outs = []
     for t_snap in snapshots[:n_times]:
-        if use_planes and cfg.freq_domain and cfg.backend == "pallas":
-            h = _path_sum_pallas(cfg, arx, atx, powers_lin, paths, valid,
-                                 t_snap)
-        elif use_planes and cfg.freq_domain:
+        if use_planes and cfg.freq_domain:
             gr, gi = _ofdm_gain_planes(cfg, powers_lin, paths.delay_s,
                                        paths.phase_deg, valid, t_snap,
                                        paths)

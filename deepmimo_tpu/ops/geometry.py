@@ -5,8 +5,8 @@ subsystem (reference deepmimo/generator/geometry.py:19-339). Semantics match
 the reference formulas exactly; the implementation differs:
 
 - validity masks replace NaN propagation (NaNs poison gradients under jit),
-- ``safe_arccos``/``safe_angle`` guard gradient singularities at |x| -> 1 and
-  at the complex origin,
+- ``safe_arccos``/``safe_polar``/``safe_angle`` guard gradient
+  singularities at |x| -> 1, on the polar axis and at the complex origin,
 - everything is batched and shape-static so XLA can fuse into the channel
   renderer.
 
@@ -31,17 +31,36 @@ import numpy as np
 
 @jax.custom_jvp
 def safe_arccos(x: jax.Array) -> jax.Array:
-    """arccos with a clamped input and a bounded gradient at |x| -> 1."""
+    """arccos with a clamped input and a bounded gradient at |x| -> 1.
+
+    The gradient's clamp sits one machine epsilon of x's dtype inside
+    +-1, so float64 gradients stay exact to within ~1e-8 rad of the
+    poles (a fixed float32-sized margin would clip them within 0.03 deg).
+    """
     return jnp.arccos(jnp.clip(x, -1.0, 1.0))
 
 
 @safe_arccos.defjvp
 def _safe_arccos_jvp(primals, tangents):
     (x,), (dx,) = primals, tangents
-    xc = jnp.clip(x, -1.0 + 1e-7, 1.0 - 1e-7)
+    eps = jnp.finfo(jnp.result_type(x, float)).eps
+    xc = jnp.clip(x, -1.0 + eps, 1.0 - eps)
     primal = jnp.arccos(jnp.clip(x, -1.0, 1.0))
     tangent = -dx / jnp.sqrt(1.0 - xc * xc)
     return primal, tangent
+
+
+def safe_polar(x: jax.Array, y: jax.Array, z: jax.Array) -> jax.Array:
+    """Polar angle of the unit vector (x, y, z): atan2(hypot(x, y), z).
+
+    Unlike arccos(z), whose float32 input has lost the angle near the
+    poles (cos t rounds to 1 for t below ~3e-4 rad), this keeps the
+    angle to float rounding everywhere; zero gradient on the axis.
+    """
+    r2 = x * x + y * y
+    on_axis = r2 == 0
+    r = jnp.where(on_axis, 0.0, jnp.sqrt(jnp.where(on_axis, 1.0, r2)))
+    return jnp.arctan2(r, z)
 
 
 def safe_angle(re: jax.Array, im: jax.Array) -> jax.Array:
@@ -82,7 +101,7 @@ def rotate_angles(rotation_deg: jax.Array, el_deg: jax.Array,
     rot_z = rot[:, 2:3]   # rotation about z
 
     x, y, z = _rotated_unit_components(rot_x, rot_y, rot_z, theta, phi)
-    return safe_arccos(z), safe_angle(x, y)
+    return safe_polar(x, y, z), safe_angle(x, y)
 
 
 def _rotated_unit_components(rot_x, rot_y, rot_z, theta, phi):
@@ -112,11 +131,9 @@ def rotate_unit_vec(rotation_deg: jax.Array, el_deg: jax.Array,
     composition of :func:`rotate_angles` + :func:`array_response_phase`.
 
     The fused render kernel needs only kd*y' and kd*z' (panel elements lie
-    in the y-z plane), so going through angle space (arccos + atan2 here,
-    then sincos again in array_response_phase) is pure overhead: ~6 ms of
-    the 18.4 ms headline chunk (benchmarks/SOL.md, prologue accounting).
-    Identical values up to roundoff — sin(theta')sin(phi') == y' for a
-    unit vector — and smooth everywhere (no arccos edge).
+    in the y-z plane), so going through angle space (two atan2 here, then
+    sincos again in array_response_phase) is pure overhead. Identical
+    values up to roundoff — sin(theta')sin(phi') == y' for a unit vector.
     """
     theta = jnp.deg2rad(el_deg)
     phi = jnp.deg2rad(az_deg)
@@ -220,11 +237,10 @@ def array_response_planes(panel_shape: Tuple[int, int], spacing: jax.Array,
                           theta_rad: jax.Array, phi_rad: jax.Array,
                           valid: Optional[jax.Array] = None
                           ) -> Tuple[jax.Array, jax.Array]:
-    """Array response as (real, imag) planes — the TPU-fast layout.
+    """Array response as (real, imag) planes.
 
-    Complex arithmetic lowers poorly on TPU (measured ~8x slower than
-    explicit real matmuls); the hot path therefore carries real/imag
-    planes end-to-end. Same math as :func:`array_response`.
+    The planes path sums with real matmuls and returns real/imag planes,
+    skipping a complex pass over H. Same math as :func:`array_response`.
 
     Returns:
         (re, im), each [U, N, P] in the angles' dtype.

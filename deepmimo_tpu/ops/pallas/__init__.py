@@ -1,5 +1,1 @@
-"""Pallas TPU kernels for the channel-synthesis hot path."""
-
-from .pathsum import fused_path_sum, pallas_available
-
-__all__ = ["fused_path_sum", "pallas_available"]
+"""Pallas GPU kernels (Triton route) for the channel-synthesis hot path."""

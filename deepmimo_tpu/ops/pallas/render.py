@@ -1,204 +1,99 @@
-"""Fully-fused path->channel Pallas kernel: per-path scalars in, H out.
+"""Fused path->channel render for the GPU: per-path scalars in, H out.
 
-One kernel computes, per user tile, entirely in VMEM:
+One Pallas kernel (Triton route) computes, for each user and each block
+of output rows, entirely in registers:
 
-    e_y[m]  = exp(j m ky),  e_z[n] = exp(j n kz)      (separable panel)
-    a[t]    = e_z[n(t)] * e_y[m(t)]                   (array response)
-    E[q,p]  = a_rx[r] * a_tx[t]                       (outer product)
-    w1[k1]  = exp(-j w k1), w2[k2] = exp(-j w L1 k2)  (subcarrier tables)
-    g[p,k]  = amp * exp(j psi) * w2[k//L1] * w1[k%L1] (OFDM path gain)
-    H[q,k]  = sum_p E[q,p] g[p,k]                     (one packed MXU dot)
+    E[q, p] = exp(j (m_t ky_t + n_t kz_t + m_r ky_r + n_r kz_r))  (panel pair)
+    g[p, j] = amp[s, p] exp(j (psi[s, p] - omega[p] k)),  j = s * K + k
+    H[q, j] = sum_p E[q, p] g[p, j]                     (four tensor-core dots)
 
-and writes the H planes exactly once to HBM. Inputs are only the per-path
-scalars ([U, P] each), so HBM traffic is ~the output tensor — unlike the
-XLA path which materializes array-response planes, E, g and matmul
-partials (measured at the HBM roofline on TPU v5e). The separable phase
-tables cut sin/cos count by ~4x: P*(M+N) instead of P*M*N for the panel,
-P*(L1+K/L1) instead of P*K for the subcarriers.
+and stores H to device memory exactly once. Its inputs are only the
+per-path scalars ([U, P] each), so the kernel's memory traffic is about
+the output tensor. The plain XLA renderer instead writes the array
+responses, E, the gain planes and four matmul partials to device memory
+and reads them back.
 
-The panel factorization follows ops/geometry.py: ant_indices lays the
-(M1, M2) panel in the y-z plane with t = n*M1 + m, so
-phase[t] = m*ky + n*kz (reference deepmimo/generator/geometry.py:105-120).
-Subcarrier values must form an arithmetic progression k0 + s*arange(K);
-the caller folds k0 into psi and s into omega.
+The panel layout follows ops/geometry.py: ant_indices lays an (M1, M2)
+panel in the y-z plane with t = n * M1 + m, so phase[t] = m ky + n kz
+(reference deepmimo/generator/geometry.py:105-120), and the pair index is
+q = r * T + t. Subcarriers must form an arithmetic progression
+k0 + stride * arange(K); the caller folds k0 into psi and the stride into
+omega. The slot axis s carries Doppler snapshots or polarizations: psi is
+[U, S*P], amp [U, P] (shared) or [U, S*P] (per slot).
 
-Gradients route through a custom VJP whose backward is a second Pallas
-kernel (recompute-in-VMEM): er/ei and the unit-amplitude gain planes are
-rebuilt per tile from the saved per-path scalars, the cotangent tile is
-contracted with eight MXU dots (dE and dG), and the chain rules back to
-the 7 scalar inputs run entirely in VMEM. HBM traffic of the backward is
-~one read of the cotangent + the tiny per-path gradients — the XLA
-reference VJP (kept as a fallback for tiles that exceed VMEM) instead
-materializes er/ei/gr/gi and their cotangents in HBM.
+Gradients: the custom VJP differentiates the plain XLA reference
+(:func:`_reference_impl`); the kernel is the forward path only.
 """
 
 from __future__ import annotations
 
 import functools
-import os
-from typing import Tuple
-
-# Perf-bisect ablations (trace-time; benchmarks/perf_lanepack.py only).
-# NEVER set in a production process: ablated kernels compute WRONG channels.
-_ABLATE = os.environ.get("DM_RENDER_ABLATE", "")
-if _ABLATE:  # loud, unmissable — guards against leaked env vars
-    import warnings
-    warnings.warn(
-        f"DM_RENDER_ABLATE={_ABLATE!r}: fused_render will produce WRONG "
-        "channel matrices (perf-bisect ablation mode). Unset it for any "
-        "non-benchmark use.", RuntimeWarning, stacklevel=2)
-
-# Debug escape hatch: DM_RENDER_NO_PACK=1 disables the 32-aligned user
-# packing and falls back to the legacy one-user-per-row layout. Packing
-# is the DEFAULT: measured 7.86 ms vs 20.4 ms per 131k-user chunk on the
-# headline config (benchmarks/perf_pack32.py / perf_pack32c.py, same-run
-# comparison).
-#
-# The PRODUCT path does NOT read these module globals: the layout flags
-# are ChannelConfig fields (kernel_no_pack / kernel_pack_first, seeded
-# from the config singleton in params.to_config) passed explicitly as
-# static args, so they participate in every jit cache key — toggling
-# config after a trace retraces instead of returning a stale kernel.
-# The globals only seed the default when a direct fused_render caller
-# (benchmarks, ablation probes) leaves no_pack/pack_first as None.
-NO_PACK = bool(int(os.environ.get("DM_RENDER_NO_PACK", "0")))
-
-# Prologue ordering for the packed layout: pack the 7 raw inputs then
-# trig on packed arrays (True), or trig on flat views then pack the 13
-# outputs (False). Perf A/B only (results identical).
-PACK_FIRST = bool(int(os.environ.get("DM_RENDER_PACK_FIRST", "0")))
+from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-
-try:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    _PALLAS_OK = True
-except Exception:  # pragma: no cover
-    _PALLAS_OK = False
-
-
-def _ceil_to(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _best_l1(k: int) -> int:
-    """Table split minimizing sincos work: L1 ~ sqrt(K), L1 | K."""
-    best = 1
-    for l1 in (4, 8, 16, 32):
-        if k % l1 == 0 and l1 <= k:
-            if abs(l1 - k // l1) < abs(best - k // best):
-                best = l1
-    return best
-
-
-def _grouping(p: int, no_pack=None) -> Tuple[int, int]:
-    """(group, pp): users per 128-lane group, per-user padded path lanes.
-
-    A [U, P] f32 per-path array is (8, 128)-tile padded on TPU: at P = 25
-    every VPU pass and every HBM byte of kernel input pays a 5.1x tax.
-    Packing G = 128 // pp users (pp = ceil(P, 32)) onto one 128-lane
-    group makes every per-path stage (recurrences, panel build,
-    subcarrier tables) and the kernel input DMA dense. The path-sum dot
-    SLICES each residue's 32-aligned lane block (a cheap extract — no
-    masks) and contracts pp lanes, exactly the legacy MXU cost. This is
-    the fix for the round-3 lane-pack experiment, whose full-width
-    masked dots cost 4x MXU (benchmarks/perf_lanepack.py 22.3 ms vs
-    legacy 14.5 ms); the sliced layout measures 7.9 ms vs legacy 20.4 ms
-    on the 131k-user headline (benchmarks/perf_pack32.py, perf_pack32c).
-    P > 64 (pp > 64) falls back to the legacy one-user-per-row layout
-    (group = 1, lanes = ceil(P, 128)).
-    """
-    if NO_PACK if no_pack is None else no_pack:
-        return 1, _ceil_to(max(p, 1), 128)
-    pp = _ceil_to(max(p, 1), 32)
-    if pp <= 64:
-        return 128 // pp, pp
-    return 1, _ceil_to(p, 128)
-
-
-def _pack_rows(x, nb: int, g: int, ug: int, pp: int):
-    """[nb*g*ug, *mid, P] -> lane-packed [nb*ug, *mid, g*pp(=128)].
-
-    Tile b holds users [b*g*ug, (b+1)*g*ug); within the tile, row j lane
-    (r*pp + p) is user b*g*ug + r*ug + j, path p — residue-r users are
-    CONTIGUOUS rows [r*ug, (r+1)*ug) of the OUTPUT tile, so the kernel's
-    per-residue results store as static row slices in global user order.
-    Each user's block is zero-padded P -> pp so kernel register pads hold
-    exact zeros (amp = 0 there => zero gain planes, no NaN/Inf leakage
-    into the path-sum dots).
-    """
-    p = x.shape[-1]
-    if p < pp:
-        x = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, pp - p)])
-    mid = x.shape[1:-1]
-    y = x.reshape((nb, g, ug) + mid + (pp,))
-    perm = (0, 2) + tuple(range(3, 3 + len(mid))) + (1, 3 + len(mid))
-    return y.transpose(perm).reshape((nb * ug,) + mid + (g * pp,))
-
-
-def _unpack_rows(y, nb: int, g: int, ug: int, pp: int, p: int):
-    """Inverse of :func:`_pack_rows`: [nb*ug, *mid, g*pp] -> [.., P]."""
-    mid = y.shape[1:-1]
-    z = y.reshape((nb, ug) + mid + (g, pp))
-    perm = (0, 2 + len(mid), 1) + tuple(range(2, 2 + len(mid))) + \
-        (3 + len(mid),)
-    z = z.transpose(perm).reshape((nb * g * ug,) + mid + (pp,))
-    return z[..., :p]
+from jax import lax
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
 
 # ----------------------------------------------------------------------------
-# XLA reference implementation (backward path + correctness oracle)
+# Plain XLA reference (correctness oracle, gradient path, non-GPU renderer)
 # ----------------------------------------------------------------------------
 
-def _reference_impl(gry, grz, gty, gtz, amp, psi, omega,
-                    rx_shape, tx_shape, n_k):
-    """Same math, plain XLA, direct (non-tabled) phases.
+def panel_response(ky, kz, m1: int, m2: int):
+    """Planar-panel response planes [U, m1*m2, P] from per-path phase steps.
 
-    psi may carry a folded snapshot axis: [U, S*P] renders S time
-    snapshots stacked along the output k axis -> [U, Q, S*n_k]. amp is
-    [U, P] (snapshot-invariant) or [U, S*P] (per-snapshot — the
-    dual-polarization layout, where each "snapshot" is a polarization
-    with its own amplitudes AND phases).
+    ``ky``/``kz`` are [U, P]; antenna t = n * m1 + m has phase m ky + n kz.
+    """
+    u, p = ky.shape
+    m = jnp.arange(m1, dtype=ky.dtype)
+    n = jnp.arange(m2, dtype=ky.dtype)
+    ph = (m[None, :, None, None] * ky[:, None, None, :] +
+          n[None, None, :, None] * kz[:, None, None, :])
+    ph = ph.transpose(0, 2, 1, 3).reshape(u, m1 * m2, p)
+    return jnp.cos(ph), jnp.sin(ph)
+
+
+def gain_planes(amp, psi, omega, n_k: int):
+    """OFDM gain planes [U, S, P, K]: amp e^{j(psi_s - omega k)}.
+
+    ``psi`` is [U, S*P]; ``amp`` is [U, P] (shared by every slot) or
+    [U, S*P] (one amplitude per slot).
     """
     u, p = omega.shape
     n_s = psi.shape[1] // p
     n_sa = amp.shape[1] // p
-    r1, r2 = rx_shape
-    t1, t2 = tx_shape
+    ks = jnp.arange(n_k, dtype=amp.dtype)
+    base = (psi.reshape(u, n_s, p)[..., None] -
+            omega[:, None, :, None] * ks)
+    amp_b = amp.reshape(u, n_sa, p)[..., None]
+    return amp_b * jnp.cos(base), amp_b * jnp.sin(base)
 
-    def response(ky, kz, m1, m2):
-        m = jnp.arange(m1, dtype=ky.dtype)
-        n = jnp.arange(m2, dtype=ky.dtype)
-        ph = (m[None, :, None, None] * ky[:, None, None, :] +
-              n[None, None, :, None] * kz[:, None, None, :])
-        ph = ph.transpose(0, 2, 1, 3).reshape(u, m1 * m2, p)
-        return jnp.cos(ph), jnp.sin(ph)
 
-    arx_r, arx_i = response(gry, grz, r1, r2)
-    atx_r, atx_i = response(gty, gtz, t1, t2)
+def _reference_impl(gry, grz, gty, gtz, amp, psi, omega, rx_shape, tx_shape,
+                    n_k, precision=lax.Precision.HIGHEST):
+    """Same math as the kernel in plain XLA: (hr, hi), each [U, Q, S*K].
+
+    HIGHEST is the oracle's precision (full float32 products on every
+    backend); the product's non-GPU renderer passes its configured one.
+    """
+    u, p = omega.shape
+    n_s = psi.shape[1] // p
+    arx_r, arx_i = panel_response(gry, grz, *rx_shape)
+    atx_r, atx_i = panel_response(gty, gtz, *tx_shape)
     er = (arx_r[:, :, None, :] * atx_r[:, None, :, :] -
           arx_i[:, :, None, :] * atx_i[:, None, :, :])
     ei = (arx_r[:, :, None, :] * atx_i[:, None, :, :] +
           arx_i[:, :, None, :] * atx_r[:, None, :, :])
-    q = r1 * r2 * t1 * t2
+    q = er.shape[1] * er.shape[2]
     er, ei = er.reshape(u, q, p), ei.reshape(u, q, p)
+    gr, gi = gain_planes(amp, psi, omega, n_k)
 
-    ks = jnp.arange(n_k, dtype=amp.dtype)
-    base = (psi.reshape(u, n_s, p)[..., None] -
-            omega[:, None, :, None] * ks)                  # [u, s, p, k]
-    amp_b = amp.reshape(u, n_sa, p)[..., None]             # bcast if n_sa=1
-    gr = amp_b * jnp.cos(base)
-    gi = amp_b * jnp.sin(base)
-
-    # HIGHEST: this is the correctness oracle / VMEM-overflow fallback —
-    # a 1-bf16-pass TPU dot here would put ~2^-9 noise in the reference.
-    mm = lambda a, b: jnp.einsum("uqp,uspk->uqsk", a, b,
-                                 preferred_element_type=jnp.float32,
-                                 precision=jax.lax.Precision.HIGHEST
-                                 ).reshape(u, a.shape[1], n_s * n_k)
+    def mm(a, b):
+        return jnp.einsum("uqp,uspk->uqsk", a, b,
+                          preferred_element_type=jnp.float32,
+                          precision=precision).reshape(u, q, n_s * n_k)
     return mm(er, gr) - mm(ei, gi), mm(er, gi) + mm(ei, gr)
 
 
@@ -206,958 +101,200 @@ def _reference_impl(gry, grz, gty, gtz, amp, psi, omega,
 # Kernel
 # ----------------------------------------------------------------------------
 
-def _dot_mode(mm_dtype: str, dn):
-    """MXU dot strategy: (prepare(x) -> operand tuple, dot(a, b) -> f32).
+class Tiles(NamedTuple):
+    """Launch shape of the kernel (hashable: part of the jit key). Each
+    program renders one user (grid axis 0) and one block of rows."""
 
-    TPU MXU matmuls on f32 inputs are emulated in bf16 passes. Mosaic's
-    dot lowering supports only DEFAULT (1 pass, ~2^-9 relative error —
-    measured 2.9e-3 max rel err on the production render vs the f64
-    oracle, benchmarks/perf_precision.py) and HIGHEST (6 passes, ~2x
-    kernel time). "float32" therefore does a MANUAL 3-pass split:
-    x = hi + lo in bf16, dot = hi.hi + hi.lo + lo.hi -> ~2^-17 relative
-    (measured 5e-6-grade parity) at 3 MXU passes, with the split done
-    ONCE per operand outside the residue loop.
+    rows: int         # output rows q per program (grid axis 1)
+    cols: int         # output columns j per inner step (looped)
+    num_warps: int
+
+
+def _pow2(x: int, floor: int = 16) -> int:
+    """Next power of two >= max(x, floor): Triton blocks and dot operands
+    need power-of-two sides of at least 16."""
+    return max(floor, 1 << (max(int(x), 1) - 1).bit_length())
+
+
+def pick_tiles(n_q: int, n_sk: int) -> Tiles:
+    """Launch shape for one render config: the one place block sizes live.
+
+    From a sweep on an H100 (PERF.md): 64 output rows and 32 columns per
+    step, 4 warps. The two [rows, cols] float32 accumulators, E [rows, P]
+    and g [P, cols] then stay in registers at the path counts scenarios
+    carry.
     """
-    if mm_dtype not in ("float32", "bfloat16", "highest", "default"):
-        # Fallthrough to DEFAULT would be a SILENT precision downgrade
-        # (1 bf16 pass, ~2^-9 relative) — reject typos loudly instead.
-        raise ValueError(
-            f"matmul_dtype={mm_dtype!r}: expected one of "
-            "'float32' (3-pass hi/lo split, ~2^-17), 'bfloat16'/'default' "
-            "(1 pass, ~2^-9), 'highest' (6 passes)")
+    return Tiles(rows=min(_pow2(n_q), 64), cols=min(_pow2(n_sk), 32),
+                 num_warps=4)
+
+
+# matmul_dtype -> path-sum dot algorithm on the tensor cores. "float32"
+# takes three TF32 passes (about float32 accuracy at tensor-core rate).
+_DOT_ALGORITHM = {
+    "float32": lax.DotAlgorithmPreset.TF32_TF32_F32_X3,
+    "highest": lax.DotAlgorithmPreset.F32_F32_F32,
+    "bfloat16": lax.DotAlgorithmPreset.BF16_BF16_F32,
+    "default": None,
+}
+
+
+def _dot_algorithm(mm_dtype: str, interpret: bool):
+    if mm_dtype not in _DOT_ALGORITHM:
+        raise ValueError(f"matmul_dtype={mm_dtype!r}: expected one of "
+                         f"{sorted(_DOT_ALGORITHM)}")
+    alg = _DOT_ALGORITHM[mm_dtype]
+    if interpret and alg == lax.DotAlgorithmPreset.TF32_TF32_F32_X3:
+        # The interpreter runs the dot on the CPU, which has no TF32.
+        return lax.DotAlgorithmPreset.F32_F32_F32
+    return alg
+
+
+def _kernel(gry_ref, grz_ref, gty_ref, gtz_ref, amp_ref, psi_ref, omega_ref,
+            h_ref, *, n_paths, rx_shape, tx_shape, n_k, n_s, slot_amp,
+            packed, tiles, algorithm):
     f32 = jnp.float32
-    prec = {"highest": jax.lax.Precision.HIGHEST,
-            "default": jax.lax.Precision.DEFAULT}.get(mm_dtype)
-    base = functools.partial(jax.lax.dot_general, dimension_numbers=dn,
-                             preferred_element_type=f32, precision=prec)
-    if mm_dtype == "float32":
-        def prep(x):
-            hi = x.astype(jnp.bfloat16)
-            return hi, (x - hi.astype(f32)).astype(jnp.bfloat16)
+    (r1, r2), (t1, t2) = rx_shape, tx_shape
+    n_t = t1 * t2
+    n_q = r1 * r2 * n_t
+    n_sk = n_s * n_k
+    pp = _pow2(n_paths)
 
-        def dot(a, b):
-            return base(a[0], b[0]) + base(a[0], b[1]) + base(a[1], b[0])
-        return prep, dot
-    if mm_dtype == "bfloat16":
-        return (lambda x: (x.astype(jnp.bfloat16),)), \
-            (lambda a, b: base(a[0], b[0]))
-    return (lambda x: (x,)), (lambda a, b: base(a[0], b[0]))
+    p = jnp.arange(pp)
+    p_ok = p < n_paths
+    u = pl.program_id(0)
+    q = pl.program_id(1) * tiles.rows + jnp.arange(tiles.rows)
+    q_ok = q < n_q
+    t = q % n_t
+    m_t, n_t_ = (t % t1).astype(f32), (t // t1).astype(f32)
+    r = q // n_t
+    m_r, n_r = (r % r1).astype(f32), (r // r1).astype(f32)
+    dot = functools.partial(pl.dot, precision=algorithm)
 
+    def load(ref):
+        return plgpu.load(ref.at[u, p], mask=p_ok, other=0.0)
 
-def _slice_dot_mode(mm_dtype: str, dn, pp: int):
-    """Per-residue sliced MXU dot for the packed layout.
+    ph = (m_t[:, None] * load(gty_ref)[None, :] +
+          n_t_[:, None] * load(gtz_ref)[None, :])
+    if r1 * r2 > 1:
+        ph += (m_r[:, None] * load(gry_ref)[None, :] +
+               n_r[:, None] * load(grz_ref)[None, :])
+    er, ei = jnp.cos(ph), jnp.sin(ph)                      # [rows, pp]
+    omega = load(omega_ref)
+    amp = None if slot_amp else load(amp_ref)
 
-    Returns ``(split(x) -> parts, dot_at(a_parts, b_parts, lane_lo))``.
-    Each residue contracts ONLY its own pp-lane block via a 32-aligned
-    lane slice — no masks, no full-width contractions (the round-3
-    lane-pack mistake). "float32" fuses the hi/lo 3-term sum
-    (hi.hi + hi.lo + lo.hi) into ceil(3*pp/128) dots by CONCATENATING
-    the bf16 halves along the contraction axis: at pp = 32 that is ONE
-    96-lane dot — f32-grade accuracy (measured 1.9e-7 relative,
-    benchmarks/perf_pack32c.py) at the MXU pass count of a bf16 dot
-    (11.2 -> 7.9 ms on the 131k-user headline chunk).
-    """
-    f32 = jnp.float32
-    if mm_dtype not in ("float32", "bfloat16", "highest", "default"):
-        raise ValueError(
-            f"matmul_dtype={mm_dtype!r}: expected one of 'float32', "
-            "'bfloat16', 'highest', 'default'")
-    prec = {"highest": jax.lax.Precision.HIGHEST,
-            "default": jax.lax.Precision.DEFAULT}.get(mm_dtype)
-    base = functools.partial(jax.lax.dot_general, dimension_numbers=dn,
-                             preferred_element_type=f32, precision=prec)
-    if mm_dtype == "float32":
-        def split(x):
-            hi = x.astype(jnp.bfloat16)
-            return hi, (x - hi.astype(f32)).astype(jnp.bfloat16)
-
-        terms = ((0, 0), (0, 1), (1, 0))       # (a_half, b_half) pairs
-        per_dot = max(1, 128 // pp)
-
-        def dot_at(a, b, lo):
-            sl = lambda x: x[..., lo:lo + pp]
-            out = None
-            for i in range(0, len(terms), per_dot):
-                chunk = terms[i:i + per_dot]
-                if len(chunk) > 1:
-                    lhs = jnp.concatenate([sl(a[ia]) for ia, _ in chunk],
-                                          axis=-1)
-                    rhs = jnp.concatenate([sl(b[ib]) for _, ib in chunk],
-                                          axis=-1)
-                else:
-                    (ia, ib), = chunk
-                    lhs, rhs = sl(a[ia]), sl(b[ib])
-                m = base(lhs, rhs)
-                out = m if out is None else out + m
-            return out
-        return split, dot_at
-
-    if mm_dtype == "bfloat16":
-        split = lambda x: (x.astype(jnp.bfloat16),)
-    else:
-        split = lambda x: (x,)
-
-    def dot_at(a, b, lo):
-        return base(a[0][..., lo:lo + pp], b[0][..., lo:lo + pp])
-    return split, dot_at
-
-def _phasor_powers(c1, s1, m: int):
-    """(cos(m'x), sin(m'x)) for m'=0..m-1 from ONE base sincos pair.
-
-    Chebyshev-style recurrence z_{m+1} = 2 cos(x) z_m - z_{m-1} (2 vector
-    FMAs per antenna index) replaces per-index sincos evaluations — the
-    kernel bisect measured transcendentals at ~18 of 47 ms on the
-    headline config (benchmarks/perf_kernel_bisect.py).
-    Returns (cos_list, sin_list), each m arrays shaped like c1.
-    """
-    cs = [jnp.ones_like(c1), c1]
-    ss = [jnp.zeros_like(s1), s1]
-    two_c1 = 2.0 * c1
-    for _ in range(2, m):
-        cs.append(two_c1 * cs[-1] - cs[-2])
-        ss.append(two_c1 * ss[-1] - ss[-2])
-    return cs[:m], ss[:m]
-
-
-def _phasor_stack(c1, s1, m: int, axis: int):
-    """cos/sin(m'*x) for m'=0..m-1 from the BASE PAIR (cos x, sin x),
-    stacked along ``axis``.
-
-    The base sincos is evaluated OUTSIDE the kernel (XLA prologue, compact
-    [U, P] arrays): inside Mosaic these small arrays pad to (8, 128) tiles
-    and the transcendental polynomial runs on every padded lane — measured
-    ~7 of 17 ms on the headline config (benchmarks/perf_sol.py, the
-    'notrig' ablation). In-kernel work is recurrences only.
-    """
-    if m == 1:
-        return (jnp.stack([jnp.ones_like(c1)], axis=axis),
-                jnp.stack([jnp.zeros_like(s1)], axis=axis))
-    cs, ss = _phasor_powers(c1, s1, m)
-    return jnp.stack(cs, axis=axis), jnp.stack(ss, axis=axis)
-
-
-def _response(cky, sky, ckz, skz, m1, m2):
-    """Separable panel response -> (re, im) [ut, m1*m2, p].
-
-    t = n*m1 + m with phase[t] = m*ky + n*kz (ops/geometry.py panel
-    layout); inputs are the base phasors (cos ky, sin ky, cos kz, sin kz).
-    Shared by the forward and backward kernels.
-    """
-    ut, p = cky.shape
-    cm, sm = _phasor_stack(cky, sky, m1, axis=1)           # [ut, m1, p]
-    cn, sn = _phasor_stack(ckz, skz, m2, axis=1)           # [ut, m2, p]
-    if m1 == 1:
-        return cn, sn
-    if m2 == 1:
-        return cm, sm
-    # t = n*m1 + m  ->  [ut, m2, m1, p] then flatten
-    re = cn[:, :, None, :] * cm[:, None, :, :] - \
-        sn[:, :, None, :] * sm[:, None, :, :]
-    im = cn[:, :, None, :] * sm[:, None, :, :] + \
-        sn[:, :, None, :] * cm[:, None, :, :]
-    return (re.reshape(ut, m1 * m2, p), im.reshape(ut, m1 * m2, p))
-
-
-def _panel_er_ei(trig_rx, trig_tx, rx_shape, tx_shape):
-    """(er, ei) [ut, r*t, p] via the separable responses (shared fwd/bwd).
-
-    ``trig_rx``/``trig_tx`` are the base phasor 4-tuples
-    (cos ky, sin ky, cos kz, sin kz). Also returns the per-panel responses
-    for the backward chain: (arx | None, atx) with arx None when the RX
-    panel is a single antenna (E == a_tx exactly; gry/grz gradients are
-    identically zero).
-    """
-    ut, p = trig_tx[0].shape
-    r = rx_shape[0] * rx_shape[1]
-    t = tx_shape[0] * tx_shape[1]
-    atx_r, atx_i = _response(*trig_tx, *tx_shape)
-    if r == 1:
-        # Single-antenna RX: its response is exactly 1, E == a_tx.
-        return atx_r, atx_i, None, (atx_r, atx_i)
-    arx_r, arx_i = _response(*trig_rx, *rx_shape)
-    er = (arx_r[:, :, None, :] * atx_r[:, None, :, :] -
-          arx_i[:, :, None, :] * atx_i[:, None, :, :]
-          ).reshape(ut, r * t, p)
-    ei = (arx_r[:, :, None, :] * atx_i[:, None, :, :] +
-          arx_i[:, :, None, :] * atx_r[:, None, :, :]
-          ).reshape(ut, r * t, p)
-    return er, ei, (arx_r, arx_i), (atx_r, atx_i)
-
-
-def _ofdm_tables(cpsi, spsi, com, som, scale, n_k, l1):
-    """(re, im) of scale * exp(j(psi - omega*k)) -> [ut, n_s*n_k, p].
-
-    OFDM gains via two tables: k = k2*l1 + k1. Laid out [ut, k, p]
-    (k on sublanes, p on lanes) so the table outer-product reshape
-    collapses non-minor dims — Mosaic rejects minor-dim collapses.
-    Inputs are precomputed base phasors: (cos psi, sin psi) [ut, n_s, p]
-    and (cos(-omega), sin(-omega)) [ut, p] — sincos lives in the XLA
-    prologue, not in Mosaic (see _phasor_stack). The snapshot axis of psi
-    rides the k axis (tables are snapshot-invariant). ``scale=None``
-    gives the unit-amplitude planes (backward kernel); the forward folds
-    amp in here. ``scale`` is [ut, n_sa, p] with n_sa in {1, n_s}:
-    broadcast over snapshots (classic Doppler) or per-snapshot (the
-    dual-polarization layout: each snapshot slot is a polarization with
-    its own amplitudes).
-    """
-    ut, n_s, p = cpsi.shape
-    l2 = n_k // l1
-    cr, ci = cpsi, spsi
-    if scale is not None:
-        cr = scale * cr            # [ut, n_sa, p] bcasts against [ut, n_s, p]
-        ci = scale * ci
-    # Fine table exp(-j k1 w), k1 < l1, and coarse table exp(-j k2 l1 w):
-    # the coarse base cos/sin(l1*w) comes from log2(l1) double-angle steps
-    # (_best_l1 only returns powers of two).
-    c1, s1 = _phasor_stack(com, som, l1, axis=1)           # [ut, l1, p]
-    cb, sb = com, som
-    assert l1 == 1 or (l1 & (l1 - 1)) == 0, "l1 must be a power of two"
-    for _ in range(int(np.log2(l1)) if l1 > 1 else 0):
-        cb, sb = cb * cb - sb * sb, 2.0 * cb * sb          # angle doubling
-    c2s, s2s = _phasor_powers(cb, sb, l2)
-    c2 = jnp.stack(c2s, axis=1)                            # [ut, l2, p]
-    s2 = jnp.stack(s2s, axis=1)                            # [ut, l2, p]
-    # fold scale*exp(j psi) into the coarse table -> [ut, s, l2, p]
-    t2r = cr[:, :, None, :] * c2[:, None] - ci[:, :, None, :] * s2[:, None]
-    t2i = cr[:, :, None, :] * s2[:, None] + ci[:, :, None, :] * c2[:, None]
-    gr = (t2r[:, :, :, None, :] * c1[:, None, None, :, :] -
-          t2i[:, :, :, None, :] * s1[:, None, None, :, :]
-          ).reshape(ut, n_s * n_k, p)
-    gi = (t2r[:, :, :, None, :] * s1[:, None, None, :, :] +
-          t2i[:, :, :, None, :] * c1[:, None, None, :, :]
-          ).reshape(ut, n_s * n_k, p)
-    return gr, gi
-
-
-def _kernel(cgry_ref, sgry_ref, cgrz_ref, sgrz_ref, cgty_ref, sgty_ref,
-            cgtz_ref, sgtz_ref, amp_ref, cpsi_ref, spsi_ref, com_ref,
-            som_ref, h_ref, *, rx_shape, tx_shape, n_k, l1, mm_dtype,
-            packed, group=1, n_paths=0):
-    f32 = jnp.float32
-    amp = amp_ref[:]                     # [ug, n_sa, lanes], n_sa in {1, n_s}
-    ug = amp.shape[0]                    # rows per block (= user_tile / group)
-    n_s = cpsi_ref.shape[1]
-
-    r = rx_shape[0] * rx_shape[1]
-    t = tx_shape[0] * tx_shape[1]
-    q = r * t
-    sk = n_s * n_k
-    lanes = amp.shape[-1]
-
-    if "writeonly" in _ABLATE:
-        # Perf-bisect only (WRONG output): pure output-DMA floor probe.
+    def column_block(c, carry):
+        j = c * tiles.cols + jnp.arange(tiles.cols)
+        j_ok = j < n_sk
+        k = (j % n_k).astype(f32)
+        slot = p[:, None] + (j // n_k)[None, :] * n_paths
+        pj_ok = p_ok[:, None] & j_ok[None, :]
+        psi = plgpu.load(psi_ref.at[u, slot], mask=pj_ok, other=0.0)
+        if slot_amp:
+            a = plgpu.load(amp_ref.at[u, slot], mask=pj_ok, other=0.0)
+        else:
+            a = amp[:, None]
+        base = psi - omega[:, None] * k[None, :]
+        gr, gi = a * jnp.cos(base), a * jnp.sin(base)      # [pp, cols]
+        hr = (dot(er, gr) - dot(ei, gi)).astype(h_ref.dtype)
+        hi = (dot(er, gi) + dot(ei, gr)).astype(h_ref.dtype)
+        ok = q_ok[:, None] & j_ok[None, :]
+        qi, ji = q[:, None], j[None, :]
         if packed:
-            h_ref[:] = jnp.full((h_ref.shape[0], q, 2 * sk), 1.2345,
-                                h_ref.dtype)
+            plgpu.store(h_ref.at[u, qi, ji], hr, mask=ok)
+            plgpu.store(h_ref.at[u, qi, ji + n_sk], hi, mask=ok)
         else:
-            h_ref[:] = jnp.full((2, h_ref.shape[1], q, sk), 1.2345,
-                                h_ref.dtype)
-        return
+            plgpu.store(h_ref.at[0, u, qi, ji], hr, mask=ok)
+            plgpu.store(h_ref.at[1, u, qi, ji], hi, mask=ok)
+        return carry
 
-    if "nopanel" in _ABLATE:
-        # Perf-bisect only (WRONG output): skip the panel outer product.
-        base = cgty_ref[:]
-        er = jnp.broadcast_to(base[:, None, :] * 0.5 + 1.0, (ug, q, lanes))
-        ei = jnp.broadcast_to(base[:, None, :] * 0.25, (ug, q, lanes))
-    else:
-        er, ei, _, _ = _panel_er_ei(
-            (cgry_ref[:], sgry_ref[:], cgrz_ref[:], sgrz_ref[:]),
-            (cgty_ref[:], sgty_ref[:], cgtz_ref[:], sgtz_ref[:]),
-            rx_shape, tx_shape)
-
-    if "notables" in _ABLATE:
-        # Perf-bisect only (WRONG output): skip the subcarrier tables.
-        b2 = cpsi_ref[:][:, :1, :]
-        gr = jnp.broadcast_to(amp[:, :1, :] * 0.5 + b2, (ug, sk, lanes))
-        gi = jnp.broadcast_to(amp[:, :1, :] * 0.25, (ug, sk, lanes))
-    else:
-        gr, gi = _ofdm_tables(cpsi_ref[:], spsi_ref[:], com_ref[:],
-                              som_ref[:], amp, n_k, l1)
-    dn = (((2,), (2,)), ((0,), (0,)))
-    # Full-height operands: ONE 2q-row dot per residue — two q-row dots
-    # measured ~2x slower (half-empty MXU passes).
-    e2 = jnp.concatenate((er, ei), axis=1)          # [ug, 2q, L]
-    g2 = jnp.concatenate((gr, gi), axis=1)          # [ug, 2sk, L]
-
-    if group == 1:
-        prep, dot = _dot_mode(mm_dtype, dn)
-        e2p, g2p = prep(e2), prep(g2)
-    else:
-        # Packed layout: lanes hold (user-residue, path) pairs; residue r
-        # contracts ONLY its 32-aligned pp-lane block via a slice
-        # (n_paths here is the padded per-user block width pp).
-        split, dot_at = _slice_dot_mode(mm_dtype, dn, n_paths)
-        ea, ga = split(e2), split(g2)
-
-    n_res = 1 if "oneres" in _ABLATE else group
-    for res in range(n_res):
-        if "nodot" in _ABLATE:
-            # Perf-bisect only (WRONG output): consume e2/g2, skip MXU.
-            s_e = e2.sum(axis=2, keepdims=True)              # [ug, 2q, 1]
-            s_g = g2.sum(axis=1, keepdims=True)              # [ug, 1, L]
-            m = jnp.broadcast_to(s_e + s_g[:, :, :1],
-                                 (ug, 2 * q, 2 * sk)).astype(jnp.float32)
-        else:
-            m = dot(e2p, g2p) if group == 1 else dot_at(ea, ga,
-                                                        res * n_paths)
-        rows = slice(res * ug, (res + 1) * ug)
-        if "noreassemble" in _ABLATE and packed:
-            # Perf-bisect only (WRONG output): store without roll/select.
-            h_ref[rows] = m[:, :q, :].astype(h_ref.dtype)
-            continue
-        if packed:
-            # Packed (hr||hi)-on-lanes output rows [ug, q, 2sk]: with sk a
-            # multiple of 64 the minor dim is 128-lane aligned — the
-            # difference between ~165 GB/s and ~1.4 TB/s of output DMA on
-            # this stack (benchmarks/perf_layout.py). Reassemble on lanes:
-            #   m[:, :q] = [er.gr^T | er.gi^T], m[:, q:] = [ei.gr^T | ei.gi^T]
-            #   [hr | hi] = m[:, :q] + sign . roll(m[:, q:], sk)
-            # with sign = -1 on the first sk lanes (the rolled ei.gi^T half).
-            rolled = pltpu.roll(m[:, q:, :], sk, axis=2)
-            lane2 = jax.lax.broadcasted_iota(jnp.int32, rolled.shape, 2)
-            v = m[:, :q, :] + jnp.where(lane2 < sk, -rolled, rolled)
-            h_ref[rows] = v.astype(h_ref.dtype)   # bf16 out: cast at store
-        else:
-            # Stacked output buffer [2, ut, q, sk]: H lands in HBM exactly
-            # once (separate hr/hi outputs forced the caller to stack them
-            # — a full extra read+write of H).
-            h_ref[0, rows] = (m[:, :q, :sk] -
-                              m[:, q:, sk:]).astype(h_ref.dtype)
-            h_ref[1, rows] = (m[:, :q, sk:] +
-                              m[:, q:, :sk]).astype(h_ref.dtype)
+    lax.fori_loop(0, pl.cdiv(n_sk, tiles.cols), column_block, 0)
 
 
-def _kernel_norx(cgty_ref, sgty_ref, cgtz_ref, sgtz_ref, amp_ref, cpsi_ref,
-                 spsi_ref, com_ref, som_ref, h_ref, **kw):
-    """Forward kernel without the 4 RX phasor refs (single-antenna RX:
-    _panel_er_ei's r==1 branch never reads them — the TX refs stand in as
-    placeholders and Mosaic CSEs the duplicate loads)."""
-    _kernel(cgty_ref, sgty_ref, cgtz_ref, sgtz_ref, cgty_ref, sgty_ref,
-            cgtz_ref, sgtz_ref, amp_ref, cpsi_ref, spsi_ref, com_ref,
-            som_ref, h_ref, **kw)
-
-
-def vmem_estimate(user_tile: int, rx_shape, tx_shape, p: int,
-                  n_k: int, n_s: int = 1,
-                  mm_dtype: str = "float32", no_pack=None) -> int:
-    """Rough VMEM bytes for one tile (padded to (8, 128) f32 tiles).
-
-    Packed layout (group > 1, the default for P <= 64): per-path stages
-    run on [ug, rows, 128] arrays with ug = user_tile / group rows; the
-    dot output and H tile stay per-user sized. ``mm_dtype='float32'``
-    adds the hi/lo bf16 operand copies (2 bf16 arrays per operand = one
-    extra f32-sized copy each of e2 and g2) plus, in the legacy layout
-    only, one live f32 3-pass dot partial — the terms whose omission
-    caused the round-3 scoped-VMEM compile regression (the packed layout
-    fuses the 3 hi/lo terms into one concat-dot; see _slice_dot_mode).
-    """
-    g, pp = _grouping(p, no_pack)
-    ug = max(1, user_tile // g)
-    lanes = g * pp if g > 1 else _ceil_to(p, 128)
-    vm = lambda rows: ug * _ceil_to(max(rows, 1), 8) * lanes * 4
-    r = rx_shape[0] * rx_shape[1]
-    t = tx_shape[0] * tx_shape[1]
-    q = r * t
-    sk = n_s * n_k
-    l1 = _best_l1(n_k)
-    l2 = n_k // l1
-    per_path = (
-        # inputs are 2-D [ug, lanes] blocks, double-buffered
-        13 * _ceil_to(ug, 8) * lanes * 4 * 2 +
-        2 * (vm(rx_shape[0]) + vm(rx_shape[1]) +
-             vm(tx_shape[0]) + vm(tx_shape[1])) +  # phasor stacks
-        2 * (vm(r) + vm(t)) +                    # arx, atx
-        4 * vm(q) +                              # er/ei + e2 concat
-        # _panel_er_ei outer-product temporaries ([ug, r, t, L] views)
-        (4 * vm(q) if r > 1 else 0) +
-        2 * (vm(l1) + vm(l2)) + 2 * n_s * vm(l2) +  # subcarrier tables
-        4 * vm(sk) +                             # gr/gi + g2 concat
-        # hi/lo bf16 splits: 2 bf16 copies per operand = 1 f32-equivalent
-        ((vm(2 * q) + vm(2 * sk)) if mm_dtype == "float32" else 0) +
-        # per-residue sliced concat-dot temporaries (bf16, <= 128 lanes)
-        ((vm(2 * q) + vm(2 * sk)) // 2 if g > 1 else 0)
-    )
-    dot_out = ug * (_ceil_to(2 * q, 8) + _ceil_to(q, 8)) * \
-        _ceil_to(2 * sk, 128) * 4                # m + rolled (per residue)
-    if mm_dtype == "float32" and g == 1:         # one live 3-pass partial
-        dot_out += ug * _ceil_to(2 * q, 8) * _ceil_to(2 * sk, 128) * 4
-    # One output tile, actual bytes (packed [ut, q, 2sk] == stacked
-    # [2, ut, q, sk] when sk is lane-aligned); Mosaic's double-buffering
-    # headroom is what the budget margin in pick_user_tile is for.
-    h_tile = user_tile * _ceil_to(q, 8) * _ceil_to(2 * sk, 128) * 4
-    return per_path + dot_out + h_tile
-
-
-def _compiler_params(est: int):
-    """Scoped-VMEM limit for a pallas_call, sized from the tile estimate.
-
-    Mosaic's default scoped-vmem limit is 16 MiB; the f32 3-pass hi/lo
-    dots (and the lane-masked operand copies) exceed it at production
-    tiles — the round-3 regression was exactly this limit left at its
-    default on the default path (BENCH_r03 rc=124, "Scoped allocation
-    43.71M exceeded 16.00M"). Block buffers are accounted separately by
-    Mosaic, so the whole-tile estimate is a safe upper bound for the
-    scoped portion; floor 100 MiB (the estimate UNDERCOUNTS panel
-    outer-product temporaries on large-q shapes — a 64 MiB floor lost to
-    a measured 90.15M scoped need on the 8x64 MIMO config), cap 112 MiB
-    (< the 128 MiB physical VMEM). The limit is an allowance, not a
-    reservation, so a generous floor costs nothing when unused. Passed
-    UNCONDITIONALLY for every non-interpret call — never gated on a
-    layout flag.
-    """
-    return pltpu.CompilerParams(
-        vmem_limit_bytes=int(min(112 * 2**20, max(100 * 2**20, est))))
-
-
-def pick_user_tile(u: int, rx_shape, tx_shape, p: int, n_k: int,
-                   n_s: int = 1, budget: int = 104 * 2**20,
-                   mm_dtype: str = "float32", no_pack=None) -> int:
-    """Largest tile under the VMEM budget (0 = does not fit; u is padded
-    up to a tile multiple by the caller, so no divisibility constraint).
-
-    Budget: v5e has 128 MiB of VMEM; 104 MiB leaves Mosaic headroom
-    (calibrated so the headline config lands on ut = 512, its measured
-    optimum — 7.86 ms vs 11.2 ms at 256, benchmarks/perf_pack32c.py; the
-    estimate is an overcount, and the scoped-vmem limit passed to the
-    compiler enforces the real ceiling). Tiles are multiples of the
-    lane-packing group so every residue's rows fill whole sublane
-    granules; candidate ug caps at 128 rows (ut = 512 at group 4).
-    """
-    g, _pp = _grouping(p, no_pack)
-    picked = 0
-    for ug in (128, 64, 32, 16, 8):
-        ut = g * ug
-        if vmem_estimate(ut, rx_shape, tx_shape, p, n_k, n_s,
-                         mm_dtype, no_pack) <= budget:
-            if picked == 0:
-                picked = ut            # largest tile that fits
-            if u and ut >= u:
-                picked = ut            # smallest tile still covering u
-    return picked
-
-
-# ----------------------------------------------------------------------------
-# Backward kernel (recompute-in-VMEM VJP)
-# ----------------------------------------------------------------------------
-
-def _response_bwd_chain(a_r, a_i, da_r, da_i, m1, m2):
-    """Panel-response cotangent -> (dky, dkz) [ut, p].
-
-    a = exp(j ph), ph[t] = m(t)*ky + n(t)*kz with t = n*m1 + m, so
-    dph = a_r*da_i - a_i*da_r and the (static) index maps m(t), n(t)
-    contract via iota-weighted sums over the [ut, m2, m1, p] view.
-    """
-    ut, _, p = a_r.shape
-    dph = a_r * da_i - a_i * da_r                          # [ut, t, p]
-    v = dph.reshape(ut, m2, m1, p)
-    # Mosaic iota must be integer-typed; cast to f32 after.
-    mi = jax.lax.broadcasted_iota(jnp.int32, v.shape, 2).astype(jnp.float32)
-    ni = jax.lax.broadcasted_iota(jnp.int32, v.shape, 1).astype(jnp.float32)
-    return (v * mi).sum(axis=(1, 2)), (v * ni).sum(axis=(1, 2))
-
-
-def _bwd_kernel(cgry_ref, sgry_ref, cgrz_ref, sgrz_ref, cgty_ref, sgty_ref,
-                cgtz_ref, sgtz_ref, amp_ref, cpsi_ref, spsi_ref, com_ref,
-                som_ref, ct_ref,
-                dgry_ref, dgrz_ref, dgty_ref, dgtz_ref, damp_ref, dpsi_ref,
-                domega_ref, *, rx_shape, tx_shape, n_k, l1, mm_dtype,
-                packed, group=1, n_paths=0):
-    """Recompute-in-VMEM backward: cotangent tile -> per-path gradients.
-
-    Forward (per user): H = E g^T with E[q,p] the panel outer product and
-    g[sk,p] = amp * exp(j(psi_s - omega*k)). The backward rebuilds er/ei
-    and the UNIT-amplitude planes CB/SB in VMEM (amp factors out of the
-    sk-contraction) from the same precomputed base phasors as the forward,
-    takes
-
-        dE = ct . [CB|SB]^T        (contract sk)
-        dG = ct^T . [er|ei]        (contract q)
-
-    on the MXU, and chains elementwise back to PHASE-space gradients for
-    the 7 scalar inputs (dgry..domega are w.r.t. the angles, as before —
-    the trig prologue lives outside the custom-VJP boundary). HBM
-    traffic: one read of ct + P-sized gradient writes.
-    """
-    f32 = jnp.float32
-    amp = amp_ref[:]                     # [ug, n_sa, lanes], n_sa in {1, n_s}
-    ug = amp.shape[0]                    # rows per block (= user_tile / group)
-    n_s = cpsi_ref.shape[1]
-    n_sa = amp.shape[1]
-    lanes = amp.shape[2]
-    r1, r2 = rx_shape
-    t1, t2 = tx_shape
-    r, t = r1 * r2, t1 * t2
-    q, sk = r * t, n_s * n_k
-
-    er, ei, arx, atx = _panel_er_ei(
-        (cgry_ref[:], sgry_ref[:], cgrz_ref[:], sgrz_ref[:]),
-        (cgty_ref[:], sgty_ref[:], cgtz_ref[:], sgtz_ref[:]),
-        rx_shape, tx_shape)
-    cb_, sb_ = _ofdm_tables(cpsi_ref[:], spsi_ref[:], com_ref[:],
-                            som_ref[:], None, n_k, l1)     # [ug, sk, L]
-    # amp broadcast over subcarriers -> [ug, sk, L]. With per-snapshot amp
-    # (n_sa == n_s, the dual-polar layout) amp no longer factors out of
-    # the sk-contraction, so the dE dots take AMP-SCALED gain planes and
-    # the old post-dot `amp * der` multiply is gone (equivalent at
-    # n_sa == 1: the scale commutes through the dot).
-    amp_sk = jnp.broadcast_to(amp[:, :, None, :],
-                              (ug, n_s, n_k, lanes)).reshape(ug, sk, lanes)
-    cbs = amp_sk * cb_
-    sbs = amp_sk * sb_
-
-    dn_sk = (((2,), (1,)), ((0,), (0,)))    # [ug,q,sk] x [ug,sk,L]
-    dn_q = (((1,), (1,)), ((0,), (0,)))     # [ug,q,sk] x [ug,q,L]
-    prep_sk, dot_sk = _dot_mode(mm_dtype, dn_sk)
-    prep_q, dot_q = _dot_mode(mm_dtype, dn_q)
-
-    # Per-residue cotangent rows -> lane-packed gradients. The lane axis
-    # of every dot's SECOND operand is the output (non-contracted) dim,
-    # and residue r's results occupy exactly lanes [r*pp, (r+1)*pp) — so
-    # each residue dots against its own lane SLICE and the results lane-
-    # CONCATENATE in residue order: no masks, no wasted output lanes
-    # (the old masked full-width dots paid group x the MXU work; pad
-    # lanes stay zero via amp = 0 folded into cbs/sbs).
-    if group == 1:
-        sl_op = lambda tup, lo: tup          # legacy layout: full lanes
-    else:
-        sl_op = lambda tup, lo: tuple(c[..., lo:lo + n_paths]
-                                      for c in tup)
-    cat = lambda xs: xs[0] if len(xs) == 1 else jnp.concatenate(xs, -1)
-
-    if packed:
-        # ct [ut, q, 2sk], hr in the first minor half. Concats/slices
-        # stay on sublane axes for the ct side (lane ops on the big
-        # operand would force relayouts).
-        g2a = prep_sk(jnp.concatenate((cbs, sbs), axis=1))  # [ug, 2sk, L]
-        g2b = prep_sk(jnp.concatenate((-sbs, cbs), axis=1))
-        erc, eic = prep_q(er), prep_q(ei)
-        ders, deis, a2s, b2s = [], [], [], []
-        for res in range(group):
-            lo = res * n_paths
-            # prep is dn-independent: one bf16 hi/lo split feeds both dots
-            ctp = prep_sk(ct_ref[res * ug:(res + 1) * ug])  # [ug, q, 2sk]
-            ders.append(dot_sk(ctp, sl_op(g2a, lo)))        # [ug, q, pp]
-            deis.append(dot_sk(ctp, sl_op(g2b, lo)))
-            a2s.append(dot_q(ctp, sl_op(erc, lo)))          # [ug, 2sk, pp]
-            b2s.append(dot_q(ctp, sl_op(eic, lo)))
-        der, dei, a2, b2 = cat(ders), cat(deis), cat(a2s), cat(b2s)
-        dgr = a2[:, :sk, :] + b2[:, sk:, :]
-        dgi = a2[:, sk:, :] - b2[:, :sk, :]
-    else:
-        cbc, sbc = prep_sk(cbs), prep_sk(sbs)
-        erc, eic = prep_q(er), prep_q(ei)
-        ders, deis, dgrs, dgis = [], [], [], []
-        for res in range(group):
-            lo = res * n_paths
-            rows = slice(res * ug, (res + 1) * ug)
-            ctr = prep_sk(ct_ref[0, rows])
-            cti = prep_sk(ct_ref[1, rows])
-            ders.append(dot_sk(ctr, sl_op(cbc, lo)) +
-                        dot_sk(cti, sl_op(sbc, lo)))
-            deis.append(dot_sk(cti, sl_op(cbc, lo)) -
-                        dot_sk(ctr, sl_op(sbc, lo)))
-            dgrs.append(dot_q(ctr, sl_op(erc, lo)) +
-                        dot_q(cti, sl_op(eic, lo)))
-            dgis.append(dot_q(cti, sl_op(erc, lo)) -
-                        dot_q(ctr, sl_op(eic, lo)))
-        der, dei, dgr, dgi = cat(ders), cat(deis), cat(dgrs), cat(dgis)
-
-    # --- gain-side chain: g = amp * exp(j base), base = psi_s - omega*k ---
-    dval = (dgr * cb_ + dgi * sb_).reshape(ug, n_s, n_k, lanes)
-    if n_sa == n_s:
-        damp_ref[:] = dval.sum(axis=2)                     # [ug, n_s, L]
-    else:
-        damp_ref[:] = dval.sum(axis=(1, 2))[:, None, :]    # [ug, 1, L]
-    w = amp_sk * (cb_ * dgi - sb_ * dgr)                   # dL/dbase
-    wv = w.reshape(ug, n_s, n_k, lanes)
-    dpsi_ref[:] = wv.sum(axis=2)                           # [ug, n_s, L]
-    kk = jax.lax.broadcasted_iota(jnp.int32, wv.shape, 2).astype(f32)
-    domega_ref[:] = -(wv * kk).sum(axis=(1, 2))
-
-    # --- panel-side chain: E = a_rx (x) a_tx (complex outer product) ---
-    atx_r, atx_i = atx
-    if arx is None:
-        # Single-antenna RX: E == a_tx; gry/grz gradients are exactly 0.
-        datx_r, datx_i = der, dei
-        dgry_ref[:] = jnp.zeros((ug, lanes), f32)
-        dgrz_ref[:] = jnp.zeros((ug, lanes), f32)
-    else:
-        arx_r, arx_i = arx
-        der_v = der.reshape(ug, r, t, lanes)
-        dei_v = dei.reshape(ug, r, t, lanes)
-        ar4_r, ar4_i = arx_r[:, :, None, :], arx_i[:, :, None, :]
-        at4_r, at4_i = atx_r[:, None, :, :], atx_i[:, None, :, :]
-        datx_r = (der_v * ar4_r + dei_v * ar4_i).sum(axis=1)
-        datx_i = (dei_v * ar4_r - der_v * ar4_i).sum(axis=1)
-        darx_r = (der_v * at4_r + dei_v * at4_i).sum(axis=2)
-        darx_i = (dei_v * at4_r - der_v * at4_i).sum(axis=2)
-        dgry_ref[:], dgrz_ref[:] = _response_bwd_chain(
-            arx_r, arx_i, darx_r, darx_i, r1, r2)
-    dgty_ref[:], dgtz_ref[:] = _response_bwd_chain(
-        atx_r, atx_i, datx_r, datx_i, t1, t2)
-
-
-def _bwd_kernel_norx(cgty_ref, sgty_ref, cgtz_ref, sgtz_ref, amp_ref,
-                     cpsi_ref, spsi_ref, com_ref, som_ref, ct_ref,
-                     *out_refs, **kw):
-    """Backward kernel without the 4 RX phasor refs (see _kernel_norx)."""
-    _bwd_kernel(cgty_ref, sgty_ref, cgtz_ref, sgtz_ref, cgty_ref, sgty_ref,
-                cgtz_ref, sgtz_ref, amp_ref, cpsi_ref, spsi_ref, com_ref,
-                som_ref, ct_ref, *out_refs, **kw)
-
-
-def vmem_estimate_bwd(user_tile: int, rx_shape, tx_shape, p: int,
-                      n_k: int, n_s: int = 1,
-                      mm_dtype: str = "float32", no_pack=None) -> int:
-    """Rough VMEM bytes for one backward tile (f32, (8, 128) padding).
-
-    Lane-packed like the forward: per-path intermediates have
-    ug = user_tile / group rows; the cotangent tile stays per-user sized.
-    """
-    g, pp = _grouping(p, no_pack)
-    ug = max(1, user_tile // g)
-    lanes = g * pp if g > 1 else _ceil_to(p, 128)
-    vm = lambda rows: ug * _ceil_to(max(rows, 1), 8) * lanes * 4
-    r = rx_shape[0] * rx_shape[1]
-    t = tx_shape[0] * tx_shape[1]
-    q = r * t
-    sk = n_s * n_k
-    per_path = (
-        13 * vm(1) * 2 +                   # inputs, double-buffered
-        2 * (vm(rx_shape[0]) + vm(rx_shape[1]) +
-             vm(tx_shape[0]) + vm(tx_shape[1])) +
-        2 * (vm(r) + vm(t)) +              # arx, atx
-        2 * vm(q) +                        # er/ei
-        2 * vm(sk) + 2 * vm(2 * sk) +      # CB/SB + g2a/g2b
-        2 * vm(q) +                        # der/dei accumulators
-        2 * vm(2 * sk) + 2 * vm(sk) +      # a2/b2 + dgr/dgi
-        3 * vm(sk) +                       # w + iota-weighted
-        4 * vm(q) + 4 * vm(t) + 4 * vm(r) +  # E-side chain
-        # per-residue dot temporaries (masked copies)
-        2 * vm(max(q, 2 * sk)) +
-        # hi/lo bf16 splits of ct + the 4 prepared operands (f32-equiv)
-        ((vm(2 * sk) + 2 * vm(q) + 2 * vm(2 * sk) +
-          user_tile * _ceil_to(q, 8) * _ceil_to(2 * sk, 128) * 4)
-         if mm_dtype == "float32" else 0)
-    )
-    # Cotangent tile counted ONCE: packed ct is [ut, q, 2sk]; stacked is
-    # [2, ut, q, sk] — identical bytes since sk is lane-aligned. (The old
-    # leading 2x here double-counted it and shrank backward tiles /
-    # forced the 3x-slower XLA VJP on fitting workloads — ADVICE r2 #1.)
-    ct_tile = user_tile * _ceil_to(q, 8) * _ceil_to(2 * sk, 128) * 4
-    return per_path + ct_tile + 8 * ug * 128 * 4
-
-
-def pick_user_tile_bwd(rx_shape, tx_shape, p: int, n_k: int,
-                       n_s: int = 1, budget: int = 64 * 2**20,
-                       mm_dtype: str = "float32", no_pack=None) -> int:
-    """Largest backward tile under the VMEM budget (0 = does not fit)."""
-    g, _pp = _grouping(p, no_pack)
-    for ug in (64, 32, 16, 8):
-        ut = g * ug
-        if vmem_estimate_bwd(ut, rx_shape, tx_shape, p, n_k, n_s,
-                             mm_dtype, no_pack) <= budget:
-            return ut
-    return 0
-
-
-def _bwd_impl(gry, grz, gty, gtz, amp, psi, omega, ct, rx_shape, tx_shape,
-              n_k, user_tile, interpret, mm_dtype, packed,
-              no_pack=None, pack_first=None):
-    if pack_first is None:
-        pack_first = PACK_FIRST
-    u, p = omega.shape
-    n_s = psi.shape[1] // p
-    n_sa = amp.shape[1] // p                   # 1 or n_s (per-snapshot amp)
-    q = rx_shape[0] * rx_shape[1] * tx_shape[0] * tx_shape[1]
-    sk = n_s * n_k
-    g, pp = _grouping(p, no_pack)
-    user_tile = max(g, (user_tile // g) * g)
-    ug = user_tile // g
-    u_pad = _ceil_to(u, user_tile)
-    nb = u_pad // user_tile
-
-    skip_rx = rx_shape[0] * rx_shape[1] == 1
-    if u_pad != u:
-        padr = lambda x: jnp.pad(x, ((0, u_pad - u), (0, 0)))
-        gry, grz = (padr(gry), padr(grz)) if not skip_rx else (gry, grz)
-        gty, gtz, amp, psi, omega = (padr(gty), padr(gtz), padr(amp),
-                                     padr(psi), padr(omega))
-        pad_u = ((0, u_pad - u), (0, 0), (0, 0))
-        ct = jnp.pad(ct, pad_u if packed else ((0, 0),) + pad_u)
-    if g > 1 and pack_first:
-        args = _trig_args(gry, grz, gty, gtz, amp, psi, omega,
-                          skip_rx=skip_rx, pack=(nb, g, ug, pp))
-    else:
-        args = _trig_args(gry, grz, gty, gtz, amp, psi, omega,
-                          skip_rx=skip_rx)
-        if g > 1:
-            args = [_pack_rows(x, nb, g, ug, pp) for x in args]
-    lanes = args[0].shape[-1]
-
-    l1 = _best_l1(n_k)
-    grid = (nb,)
-    spec_up = pl.BlockSpec((ug, lanes), lambda i: (i, 0),
-                           memory_space=pltpu.VMEM)
-    spec_psi = pl.BlockSpec((ug, n_s, lanes), lambda i: (i, 0, 0),
-                            memory_space=pltpu.VMEM)
-    spec_amp = pl.BlockSpec((ug, n_sa, lanes), lambda i: (i, 0, 0),
-                            memory_space=pltpu.VMEM)
-    if packed:
-        spec_ct = pl.BlockSpec((user_tile, q, 2 * sk), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM)
-    else:
-        spec_ct = pl.BlockSpec((2, user_tile, q, sk), lambda i: (0, i, 0, 0),
-                               memory_space=pltpu.VMEM)
-    f32 = jnp.float32
-    rows = nb * ug
-    out_shapes = tuple([jax.ShapeDtypeStruct((rows, lanes), f32)] * 4 +
-                       [jax.ShapeDtypeStruct((rows, n_sa, lanes), f32),
-                        jax.ShapeDtypeStruct((rows, n_s, lanes), f32),
-                        jax.ShapeDtypeStruct((rows, lanes), f32)])
-    out_specs = tuple([spec_up] * 4 + [spec_amp, spec_psi, spec_up])
-    kern = functools.partial(_bwd_kernel_norx if skip_rx else _bwd_kernel,
-                             rx_shape=rx_shape, tx_shape=tx_shape, n_k=n_k,
-                             l1=l1, mm_dtype=mm_dtype, packed=packed,
-                             group=g, n_paths=pp if g > 1 else p)
-    n_ph = 4 if skip_rx else 8
-    grads = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[spec_up] * n_ph + [spec_amp] + [spec_psi] * 2 +
-                 [spec_up] * 2 + [spec_ct],
-        out_specs=out_specs,
-        out_shape=out_shapes,
-        interpret=interpret,
-        compiler_params=None if interpret else _compiler_params(
-            vmem_estimate_bwd(user_tile, rx_shape, tx_shape, p, n_k, n_s,
-                              mm_dtype, no_pack)),
-    )(*args, ct)
-    if g > 1:
-        grads = [_unpack_rows(x, nb, g, ug, pp, p) for x in grads]
-    dgry, dgrz, dgty, dgtz, damp, dpsi, domega = [
-        x[:u] for x in grads]
-    return (dgry, dgrz, dgty, dgtz, damp.reshape(u, n_sa * p),
-            dpsi.reshape(u, n_s * p), domega)
-
-
-# ----------------------------------------------------------------------------
-# Public entry with custom VJP
-# ----------------------------------------------------------------------------
-
-@functools.partial(jax.custom_vjp,
-                   nondiff_argnums=(7, 8, 9, 10, 11, 12, 13, 14, 15, 16))
-def fused_render(gry, grz, gty, gtz, amp, psi, omega,
-                 rx_shape: Tuple[int, int], tx_shape: Tuple[int, int],
-                 n_k: int, user_tile: int = 16, interpret: bool = False,
-                 mm_dtype: str = "float32",
-                 packed: bool = False,
-                 out_dtype: str = "float32",
-                 no_pack=None, pack_first=None) -> jax.Array:
-    """Fused channel render from per-path scalars -> H planes.
-
-    Args:
-        gry/grz: RX wave-vector phase steps kd*sin(theta)sin(phi),
-            kd*cos(theta) per path [U, P] (rotated-frame angles).
-        gty/gtz: TX equivalents [U, P].
-        amp: per-path linear amplitude, 0 for invalid/over-FFT paths
-            [U, P] — or [U, S*P] for per-snapshot amplitudes (the
-            dual-polarization layout: each snapshot slot is a
-            polarization with its own amps AND phases; reference
-            deepmimo_v3/generator/python/generator.py:71-78 renders the
-            four polarizations as four independent passes).
-        psi: per-path phase at subcarrier 0 (radians, incl. Doppler and
-            the k0 offset fold-in) [U, P] — or [U, S*P] to render S
-            Doppler snapshots in one call, stacked along the output k
-            axis ([U, Q, S*n_k]); panel responses and subcarrier tables
-            are then built once for all snapshots.
-        omega: per-subcarrier-step phase slope 2*pi*delay_n*stride/N.
-        rx_shape/tx_shape: static panel shapes (M1, M2).
-        n_k: number of subcarriers rendered (arithmetic progression).
-        user_tile: users per grid step (U padded up to a multiple).
-        interpret: run in interpreter mode (CPU testing).
-
-    Returns:
-        stacked (packed=False): [2, U, R*T, n_s*n_k] float32 — real/imag
-        planes stacked on the leading axis.
-        packed (packed=True): [U, R*T, 2*n_s*n_k] float32 — hr in the
-        first minor half, hi in the second. With n_s*n_k a multiple of 64
-        the minor dim is a multiple of 128 lanes, which multiplies the
-        output DMA bandwidth ~8x on this stack (benchmarks/perf_layout.py:
-        165 GB/s at minor 64 vs 1.4 TB/s at minor 128).
-        out_dtype="bfloat16" stores H in bf16 straight from the kernel —
-        HALF the output bytes on the binding HBM-write floor, ~2^-8
-        relative rounding on H (serving mode; compute stays f32).
-    """
-    return _fwd_impl(gry, grz, gty, gtz, amp, psi, omega, rx_shape,
-                     tx_shape, n_k, user_tile, interpret, mm_dtype, packed,
-                     out_dtype, no_pack, pack_first)
-
-
-def _trig_args(gry, grz, gty, gtz, amp, psi, omega, skip_rx: bool = False,
-               pack=None):
-    """XLA-prologue base phasors for the kernel (see _phasor_stack).
-
-    [gry, grz, gty, gtz] angles -> 8 cos/sin pairs; psi [U, S*P] ->
-    (cos, sin) [U, S, P]; omega -> (cos(-w), sin(-w)); sincos in the XLA
-    prologue instead of per-tile padded Mosaic transcendentals.
-
-    ``pack=(nb, g, ug, pp)`` (the packed-layout path): the 7 RAW inputs
-    are row/lane packed FIRST and the trig runs on the packed (dense)
-    arrays — 7 pack transposes instead of 13, and XLA fuses the sincos
-    into the pack writes. Pad lanes then hold cos(0)=1/sin(0)=0 instead
-    of zeros — harmless: amp (packed, not trig'd) is zero there, so pad
-    lanes contribute exact zeros to every path-sum. Without ``pack`` the
-    math runs on FLAT [U*P] views — a [U, P] f32 array is (8, 128)-tile
-    padded on TPU, so with P = 25 every elementwise pass pays a 5.1x
-    physical-bytes tax (benchmarks/SOL.md, prologue accounting).
-
-    ``skip_rx`` (static): with a single-antenna RX panel the kernels never
-    touch the RX phasors (E == a_tx, _panel_er_ei r==1 branch), so the 4
-    arrays are neither computed nor shipped — ~0.27 GB less kernel input
-    DMA per 131k-user chunk.
-
-    amp ships as a 3D [U, n_sa, P] block (n_sa in {1, n_s}) so per-
-    snapshot amplitudes (dual-polarization) use the same BlockSpec shape
-    as psi.
-    """
-    u, p = omega.shape
-    n_s = psi.shape[1] // p
-    n_sa = amp.shape[1] // p
-
-    if pack is not None:
-        nb, g, ug, pp = pack
-        pk = lambda x: _pack_rows(x, nb, g, ug, pp)
-
-        def csp(x, neg_sin=False):
-            s = jnp.sin(x)
-            return jnp.cos(x), (-s if neg_sin else s)
-
-        out = []
-        if not skip_rx:
-            out += [*csp(pk(gry.reshape(u, p))),
-                    *csp(pk(grz.reshape(u, p)))]
-        out += [*csp(pk(gty.reshape(u, p))), *csp(pk(gtz.reshape(u, p))),
-                pk(amp.reshape(u, n_sa, p)),
-                *csp(pk(psi.reshape(u, n_s, p))),
-                *csp(pk(omega), neg_sin=True)]
-        return out
-
-    def cs(x, shape, neg_sin=False):
-        xf = x.reshape(-1)
-        s = jnp.sin(xf)
-        return (jnp.cos(xf).reshape(shape),
-                (-s if neg_sin else s).reshape(shape))
-
-    out = []
-    if not skip_rx:
-        out += [*cs(gry, (u, p)), *cs(grz, (u, p))]
-    out += [*cs(gty, (u, p)), *cs(gtz, (u, p)), amp.reshape(u, n_sa, p),
-            *cs(psi, (u, n_s, p)), *cs(omega, (u, p), neg_sin=True)]
-    return out
-
-
-def _fwd_impl(gry, grz, gty, gtz, amp, psi, omega, rx_shape, tx_shape,
-              n_k, user_tile, interpret, mm_dtype="float32", packed=False,
-              out_dtype="float32", no_pack=None, pack_first=None):
+def _fwd_impl(gry, grz, gty, gtz, amp, psi, omega, rx_shape, tx_shape, n_k,
+              interpret, mm_dtype, packed, out_dtype, tiles):
     if out_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"out_dtype={out_dtype!r}: expected 'float32' "
                          "or 'bfloat16'")
-    if pack_first is None:
-        pack_first = PACK_FIRST
-    odt = jnp.dtype(out_dtype)
     u, p = omega.shape
     n_s = psi.shape[1] // p
-    n_sa = amp.shape[1] // p                   # 1 or n_s (per-snapshot amp)
-    q = rx_shape[0] * rx_shape[1] * tx_shape[0] * tx_shape[1]
-    g, pp = _grouping(p, no_pack)
-    user_tile = max(g, (user_tile // g) * g)
-    ug = user_tile // g
-    u_pad = _ceil_to(u, user_tile)
-    nb = u_pad // user_tile
-
-    # psi ships as a 3D [U, S, P] block: the kernel must not split the
-    # minor (lane) dim, so the snapshot axis is materialized here.
-    skip_rx = rx_shape[0] * rx_shape[1] == 1
-    if u_pad != u:
-        padr = lambda x: jnp.pad(x, ((0, u_pad - u), (0, 0)))
-        gry, grz = (padr(gry), padr(grz)) if not skip_rx else (gry, grz)
-        gty, gtz, amp, psi, omega = (padr(gty), padr(gtz), padr(amp),
-                                     padr(psi), padr(omega))
-    if g > 1 and "nopack" not in _ABLATE:
-        if pack_first:
-            # Pack the 7 raw inputs, trig on the packed (dense) arrays:
-            # 7 transposes instead of 13 (see _trig_args).
-            args = _trig_args(gry, grz, gty, gtz, amp, psi, omega,
-                              skip_rx=skip_rx, pack=(nb, g, ug, pp))
-        else:
-            args = _trig_args(gry, grz, gty, gtz, amp, psi, omega,
-                              skip_rx=skip_rx)
-            args = [_pack_rows(x, nb, g, ug, pp) for x in args]
-    else:
-        args = _trig_args(gry, grz, gty, gtz, amp, psi, omega,
-                          skip_rx=skip_rx)
-        if g > 1:                    # perf bisect: right shapes, wrong data
-            args = [jnp.pad(x[:nb * ug],
-                            [(0, 0)] * (x.ndim - 1) + [(0, 128 - p)])
-                    for x in args]
-    lanes = args[0].shape[-1]
-
-    l1 = _best_l1(n_k)
-    grid = (nb,)
-    spec_up = pl.BlockSpec((ug, lanes), lambda i: (i, 0),
-                           memory_space=pltpu.VMEM)
-    spec_psi = pl.BlockSpec((ug, n_s, lanes), lambda i: (i, 0, 0),
-                            memory_space=pltpu.VMEM)
-    spec_amp = pl.BlockSpec((ug, n_sa, lanes), lambda i: (i, 0, 0),
-                            memory_space=pltpu.VMEM)
-    sk = n_s * n_k
-    if packed:
-        out_spec = pl.BlockSpec((user_tile, q, 2 * sk), lambda i: (i, 0, 0),
-                                memory_space=pltpu.VMEM)
-        out_shape = jax.ShapeDtypeStruct((u_pad, q, 2 * sk), odt)
-    else:
-        out_spec = pl.BlockSpec((2, user_tile, q, sk),
-                                lambda i: (0, i, 0, 0),
-                                memory_space=pltpu.VMEM)
-        out_shape = jax.ShapeDtypeStruct((2, u_pad, q, sk), odt)
-    kern = functools.partial(_kernel_norx if skip_rx else _kernel,
-                             rx_shape=rx_shape, tx_shape=tx_shape,
-                             n_k=n_k, l1=l1, mm_dtype=mm_dtype,
-                             packed=packed, group=g,
-                             n_paths=pp if g > 1 else p)
-    n_ph = 4 if skip_rx else 8
-    h = pl.pallas_call(
+    n_q = rx_shape[0] * rx_shape[1] * tx_shape[0] * tx_shape[1]
+    n_sk = n_s * n_k
+    tiles = tiles or pick_tiles(n_q, n_sk)
+    if rx_shape[0] * rx_shape[1] == 1:
+        gry = grz = gty          # single RX antenna: never read, not shipped
+    odt = jnp.dtype(out_dtype)
+    out = (jax.ShapeDtypeStruct((u, n_q, 2 * n_sk), odt) if packed else
+           jax.ShapeDtypeStruct((2, u, n_q, n_sk), odt))
+    kern = functools.partial(
+        _kernel, n_paths=p, rx_shape=rx_shape, tx_shape=tx_shape, n_k=n_k,
+        n_s=n_s, slot_amp=amp.shape[1] != p, packed=packed, tiles=tiles,
+        algorithm=_dot_algorithm(mm_dtype, interpret))
+    f32 = lambda x: x.astype(jnp.float32)
+    return pl.pallas_call(
         kern,
-        grid=grid,
-        in_specs=[spec_up] * n_ph + [spec_amp] + [spec_psi] * 2 +
-                 [spec_up] * 2,
-        out_specs=out_spec,
-        out_shape=out_shape,
+        out_shape=out,
+        grid=(u, pl.cdiv(n_q, tiles.rows)),
         interpret=interpret,
-        # The per-residue masked dots + hi/lo splits live on the Mosaic
-        # scoped-vmem stack; the 16 MiB default OOMs at production tiles
-        # on EVERY layout (round-3 regression: this was gated on g > 1).
-        compiler_params=None if interpret else _compiler_params(
-            vmem_estimate(user_tile, rx_shape, tx_shape, p, n_k, n_s,
-                          mm_dtype, no_pack)),
-    )(*args)
-    if u_pad == u:
-        return h
-    return h[:u] if packed else h[:, :u]
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=tiles.num_warps,
+                                             num_stages=1),
+        name="fused_render",
+    )(*map(f32, (gry, grz, gty, gtz, amp, psi, omega)))
+
+
+@functools.partial(jax.custom_vjp, nondiff_argnums=(7, 8, 9, 10, 11, 12, 13,
+                                                    14))
+def fused_render(gry, grz, gty, gtz, amp, psi, omega,
+                 rx_shape: Tuple[int, int], tx_shape: Tuple[int, int],
+                 n_k: int, interpret: bool = False,
+                 mm_dtype: str = "float32", packed: bool = False,
+                 out_dtype: str = "float32",
+                 tiles: Optional[Tiles] = None) -> jax.Array:
+    """Fused channel render from per-path scalars -> H planes.
+
+    Args:
+        gry/grz: RX wave-vector phase steps kd sin(theta) sin(phi) and
+            kd cos(theta) per path [U, P] (rotated-frame angles, zero on
+            invalid paths).
+        gty/gtz: TX equivalents [U, P].
+        amp: per-path linear amplitude, 0 for invalid or over-FFT paths:
+            [U, P], or [U, S*P] with one amplitude per slot (the
+            dual-polarization layout; reference deepmimo_v3/generator/
+            python/generator.py:71-78 renders the four polarizations as
+            four independent passes).
+        psi: per-path phase at the first selected subcarrier (radians,
+            Doppler included) [U, S*P]; S slots render stacked along the
+            output column axis.
+        omega: phase slope per subcarrier step 2 pi delay_n stride / N.
+        rx_shape/tx_shape: static panel shapes (M1, M2).
+        n_k: number of subcarriers rendered per slot.
+        interpret: run the kernel in the Pallas interpreter (CPU tests).
+        mm_dtype: path-sum precision ('float32' = 3 TF32 passes,
+            'highest' = full float32, 'bfloat16', 'default').
+        tiles: launch shape; :func:`pick_tiles` when None.
+
+    Returns:
+        stacked (packed=False): [2, U, Q, S*K], real/imag planes stacked
+        on the leading axis. packed (packed=True): [U, Q, 2*S*K] with hr
+        in the first minor half and hi in the second. ``out_dtype
+        ='bfloat16'`` stores H in bf16 (half the output bytes, ~2^-8
+        relative rounding; the arithmetic stays float32).
+    """
+    return _fwd_impl(gry, grz, gty, gtz, amp, psi, omega, rx_shape, tx_shape,
+                     n_k, interpret, mm_dtype, packed, out_dtype, tiles)
 
 
 def _fwd(gry, grz, gty, gtz, amp, psi, omega, rx_shape, tx_shape, n_k,
-         user_tile, interpret, mm_dtype, packed, out_dtype, no_pack,
-         pack_first):
-    out = _fwd_impl(gry, grz, gty, gtz, amp, psi, omega, rx_shape,
-                    tx_shape, n_k, user_tile, interpret, mm_dtype, packed,
-                    out_dtype, no_pack, pack_first)
+         interpret, mm_dtype, packed, out_dtype, tiles):
+    out = _fwd_impl(gry, grz, gty, gtz, amp, psi, omega, rx_shape, tx_shape,
+                    n_k, interpret, mm_dtype, packed, out_dtype, tiles)
     return out, (gry, grz, gty, gtz, amp, psi, omega)
 
 
-def _bwd_xla(rx_shape, tx_shape, n_k, packed, res, ct):
-    """Fallback VJP through the XLA reference (tiles that exceed VMEM)."""
+def _bwd(rx_shape, tx_shape, n_k, interpret, mm_dtype, packed, out_dtype,
+         tiles, res, ct):
+    """VJP of the plain XLA reference, recomputed from the saved scalars."""
+    ct = ct.astype(jnp.float32)          # bf16-out cotangents: f32 chain
     if packed:
         sk = ct.shape[-1] // 2
         ct = jnp.stack((ct[..., :sk], ct[..., sk:]))
@@ -1165,20 +302,6 @@ def _bwd_xla(rx_shape, tx_shape, n_k, packed, res, ct):
         lambda *a: jnp.stack(_reference_impl(*a, rx_shape, tx_shape, n_k)),
         *res)
     return vjp(ct)
-
-
-def _bwd(rx_shape, tx_shape, n_k, user_tile, interpret, mm_dtype, packed,
-         out_dtype, no_pack, pack_first, res, ct):
-    ct = ct.astype(jnp.float32)          # bf16-out cotangents: f32 chain
-    psi, omega = res[5], res[6]
-    p = omega.shape[1]
-    n_s = psi.shape[1] // p
-    ut = pick_user_tile_bwd(rx_shape, tx_shape, p, n_k, n_s,
-                            mm_dtype=mm_dtype, no_pack=no_pack)
-    if not _PALLAS_OK or ut == 0:
-        return _bwd_xla(rx_shape, tx_shape, n_k, packed, res, ct)
-    return _bwd_impl(*res, ct, rx_shape, tx_shape, n_k, ut, interpret,
-                     mm_dtype, packed, no_pack, pack_first)
 
 
 fused_render.defvjp(_fwd, _bwd)

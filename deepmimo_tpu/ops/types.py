@@ -1,4 +1,4 @@
-"""Pytree data types for the TPU channel renderer.
+"""Pytree data types for the channel renderer.
 
 ``PathData`` is the device-resident struct-of-arrays view of one TX-RX pair's
 ray data (the 7 per-path matrices of the scenario format, reference
@@ -157,32 +157,19 @@ class ChannelConfig:
     compact_td_paths: Union[bool, str] = "auto"
     # Precision of the complex output
     dtype: str = "complex64"
-    # Matmul input precision for the path-sum ("float32" default;
-    # "bfloat16" halves MXU input bandwidth where the compiler honors the
-    # cast — accumulation is always float32). Note: some XLA versions
-    # elide f32->bf16->f32 casts around dots, making this a no-op.
+    # Path-sum precision: "float32" (full float32 products in XLA, three
+    # TF32 passes in the fused GPU kernel), "highest" (full float32
+    # everywhere), "bfloat16" (bf16 operands, float32 accumulation) or
+    # "default" (the backend's choice).
     matmul_dtype: str = "float32"
-    # Path-sum backend: "xla" (planes einsum, default) or "pallas"
-    # (fused VMEM-resident kernel)
-    backend: str = "xla"
     # Plane layout of render_channels_planes: "stacked" -> [2, U, R, T, K];
-    # "packed" -> [U, R, T, 2K] with hr in the first minor half. Packed
-    # makes the output minor dim a multiple of 128 lanes when K % 64 == 0,
-    # which is ~8x output-DMA bandwidth on TPU (see ops/pallas/render.py);
-    # it silently falls back to stacked when ineligible.
+    # "packed" -> [U, R, T, 2K] with hr in the first minor half (needs
+    # K % 64 == 0; silently falls back to stacked otherwise).
     planes_layout: str = "stacked"
-    # Fused-kernel layout debug knobs (hashable => part of every jit
-    # cache key; see ops/pallas/render.py). kernel_no_pack=True falls
-    # back to the legacy one-user-per-row lane layout; kernel_pack_first
-    # packs the 7 raw inputs before the trig prologue (perf A/B only —
-    # results are identical).
-    kernel_no_pack: bool = False
-    kernel_pack_first: bool = False
     # Output precision of the PLANES renderers ("float32" default;
-    # "bfloat16" halves the H output bytes — the binding HBM-write floor
-    # of the fused kernel — at ~2^-8 relative rounding on H. Serving
-    # feature for NN consumers (beam selection / CSI nets eat bf16);
-    # the canonical complex path and parity tests stay float32).
+    # "bfloat16" halves the H output bytes at ~2^-8 relative rounding on
+    # H. Serving feature for NN consumers (beam selection / CSI nets eat
+    # bf16); the canonical complex path and parity tests stay float32).
     out_dtype: str = "float32"
 
     @property

@@ -5,7 +5,7 @@ The natural parallel axes of the workload (reference SURVEY §2.9):
 - ``tile``: subcarrier/antenna tiles of the output tensor -> model parallel.
 
 Shardings are expressed with ``jax.sharding`` NamedSharding; XLA inserts the
-ICI collectives (psum for parameter gradients, all-gathers where needed).
+collectives (psum for parameter gradients, all-gathers where needed).
 """
 
 from __future__ import annotations
@@ -31,8 +31,9 @@ def make_mesh(devices: Optional[Sequence[jax.Device]] = None,
               tile: int = 1) -> Mesh:
     """Create a (users, tile) mesh over the given (or all) devices.
 
-    On a real pod slice, ``jax.devices()`` ordering follows the physical
-    torus, so contiguous splits keep the users all-reduce on ICI.
+    The GPUs of one host reach each other all to all (NVLink), so the
+    mesh follows the algorithm alone: users data-parallel, tiles of the
+    output tensor on the second axis.
     """
     devices = list(devices if devices is not None else jax.devices())
     users, tiles = default_mesh_shape(len(devices), tile)

@@ -9,8 +9,12 @@ Two entry points:
 - ``training_step``: one step of gradient-based calibration of the channel
   model (array geometry + per-path parameter corrections) against target
   channels. Per-user path gradients stay local to each shard; shared
-  parameter gradients (panel rotation/spacing) are all-reduced over ICI by
-  XLA's partitioner, overlapped with the backward pass.
+  parameter gradients (panel rotation/spacing) are all-reduced by XLA's
+  partitioner (NCCL between GPUs), overlapped with the backward pass.
+
+Renders that run the fused GPU kernel (the dual-polar path) are wrapped in
+``shard_map``: a kernel is opaque to XLA's partitioner, so each device runs
+it on its own user shard.
 """
 
 from __future__ import annotations
@@ -56,14 +60,30 @@ def render_channels_sharded(paths: PathData, bs: AntennaPanel,
     return _render_sharded(paths, bs, ue, cfg, mesh)
 
 
+def _panel_spec(panel: AntennaPanel):
+    """Per-user [U, 3] rotations shard with the users; the rest replicate."""
+    return jax.tree_util.tree_map(
+        lambda x: P(USERS_AXIS) if jnp.ndim(x) == 2 else P(), panel)
+
+
 @functools.partial(jax.jit, static_argnames=("cfg", "mesh"))
 def _render_polar_sharded(paths, bs, ue, cfg, pol_p, pol_ph, mesh):
-    from ..ops.channel import render_channels_planes_polar
-    h = render_channels_planes_polar(paths, bs, ue, cfg, pol_p, pol_ph)
-    # Raw kernel layouts: packed [U, R, T, 2*Np*S*K] (users leading) or
-    # stacked [2, U, R, T, Np, S, K] (users second). Users over the dp
-    # axis; the folded (pol, s, k) minor axis over the tile axis.
-    lead = [USERS_AXIS] if h.ndim == 4 else [None, USERS_AXIS]
+    from ..ops.channel import (render_channels_planes_polar,
+                               _polar_packed_layout)
+    # Render layouts: packed [U, R, T, 2*Np*S*K] (users leading) or
+    # stacked [2, U, R, T, Np, S, K] (users second).
+    lead = ([USERS_AXIS] if _polar_packed_layout(cfg, pol_p.shape[0])
+            else [None, USERS_AXIS])
+    pol_spec = P(None, USERS_AXIS)
+    h = jax.shard_map(
+        lambda *a: render_channels_planes_polar(*a[:3], cfg, *a[3:]),
+        mesh=mesh,
+        in_specs=(P(USERS_AXIS), _panel_spec(bs), _panel_spec(ue),
+                  pol_spec, pol_spec),
+        out_specs=P(*lead), check_vma=False,
+    )(paths, bs, ue, pol_p, pol_ph)
+    # Users over the dp axis; the folded (pol, s, k) minor axis over the
+    # tile axis.
     spec = lead + [None] * (h.ndim - len(lead) - 1) + [TILE_AXIS]
     return jax.lax.with_sharding_constraint(h, NamedSharding(mesh, P(*spec)))
 
@@ -72,14 +92,14 @@ def render_polar_sharded(paths: PathData, bs: AntennaPanel,
                          ue: AntennaPanel, cfg: ChannelConfig,
                          pol_power_dbw, pol_phase_deg,
                          mesh: Mesh) -> jax.Array:
-    """All four polarizations, one fused dispatch, users sharded.
+    """All four polarizations, one dispatch, users sharded.
 
-    The single-dispatch dual-polar render (pol axis riding the kernel
-    snapshot axis) is per-user independent like the single-pol path, so
-    users shard with zero forward collectives; the [N_pol, U, P] pol
-    matrices shard on their user axis alongside PathData. Returns the
-    raw kernel-layout planes (unpack host-side with
-    ops.channel.unpack_polar_planes_np).
+    The single-dispatch dual-polar render (pol axis riding the slot
+    axis) is per-user independent like the single-pol path, so users
+    shard with zero forward collectives; the [N_pol, U, P] pol matrices
+    shard on their user axis alongside PathData. The user count must
+    divide the mesh's users axis. Returns the raw render-layout planes
+    (unpack host-side with ops.channel.unpack_polar_planes_np).
     """
     paths = shard_paths(paths, mesh)
     sh = NamedSharding(mesh, P(None, USERS_AXIS, None))
@@ -129,10 +149,10 @@ def _render_beamgain_sharded(paths, bs, ue, cfg, wr, wi, mesh):
 def render_beam_gains_sharded(paths: PathData, bs: AntennaPanel,
                               ue: AntennaPanel, cfg: ChannelConfig,
                               wr, wi, mesh: Mesh) -> jax.Array:
-    """Fused beam-gain maps with users sharded across the mesh.
+    """Beam-gain maps with users sharded across the mesh.
 
-    The render->consume path (codebook folded into the path-sum, H never
-    materialized — ops/pallas/beamgain.py) is per-user independent, so
+    The codebook-folded render (H never materialized — ops/beamgain.py)
+    is per-user independent, so
     users shard with zero forward collectives; the small [B, T] codebook
     planes replicate. Output G [U, R*B, S*K] shards users over the dp
     axis, the subcarrier axis over the tile axis.
@@ -208,10 +228,9 @@ def calib_loss_planes(params: CalibParams, paths: PathData,
     """Planes-layout calibration loss (normalized MSE on real planes).
 
     Same objective as :func:`calib_loss` but through
-    :func:`render_channels_planes`, so with ``cfg.backend='fused'`` both
-    the forward AND the backward run as fused Pallas kernels
-    (ops/pallas/render.py `_bwd_kernel`) — the production path for
-    large-scale calibration. ``target`` must be in the same planes layout
+    :func:`render_channels_planes`, so on a GPU the forward runs as the
+    fused kernel and the backward differentiates its plain XLA reference
+    (ops/pallas/render.py). ``target`` must be in the same planes layout
     the cfg selects (stacked or packed).
     """
     h = render_channels_planes(_apply_calib(paths, params), params.bs,
@@ -225,7 +244,7 @@ def training_step_planes(params: CalibParams, paths: PathData,
                          target: jax.Array, cfg: ChannelConfig,
                          lr: float = 1e-3
                          ) -> Tuple[CalibParams, jax.Array]:
-    """One SGD calibration step on the planes path (fused fwd + bwd)."""
+    """One SGD calibration step on the planes path (fused forward)."""
     loss, grads = jax.value_and_grad(calib_loss_planes)(params, paths,
                                                         target, cfg)
     new_params = jax.tree_util.tree_map(

@@ -16,15 +16,17 @@ from typing import Dict, List
 
 @dataclass
 class StageTimer:
-    """Hierarchical wall-clock stage timer with device sync.
+    """Hierarchical wall-clock stage timer that waits for device work.
 
-    Usage::
+    JAX dispatches asynchronously, so a stage's clock stops only after
+    the device arrays it produced are ready: append them to the list the
+    stage yields. Usage::
 
         timer = StageTimer()
         with timer.stage("load"):
             ...
-        with timer.stage("render"):
-            h = render_channels(...)
+        with timer.stage("render") as out:
+            out.append(render_channels(...))
         timer.report()
     """
 
@@ -36,16 +38,14 @@ class StageTimer:
     def stage(self, name: str):
         full = "/".join(self._stack + [name])
         self._stack.append(name)
+        outputs: List = []
         t0 = time.perf_counter()
         try:
-            yield
+            yield outputs
+            if self.sync and outputs:
+                import jax
+                jax.block_until_ready(outputs)
         finally:
-            if self.sync:
-                try:
-                    import jax
-                    jax.effects_barrier()
-                except Exception:
-                    pass
             self.records.append((full, time.perf_counter() - t0))
             self._stack.pop()
 
@@ -65,7 +65,7 @@ class StageTimer:
 
 @contextlib.contextmanager
 def xla_trace(logdir: str):
-    """Capture a TensorBoard-compatible XLA/TPU trace for the block."""
+    """Capture a TensorBoard-compatible device trace for the block."""
     import jax
     jax.profiler.start_trace(logdir)
     try:
@@ -83,11 +83,12 @@ def annotate(name: str):
 
 
 def renderer_roofline(n_ue: int, n_rx_ant: int, n_tx_ant: int, n_sc: int,
-                      n_paths: int, n_time: int = 1,
-                      hbm_gbps: float = 819.0,
-                      mxu_tflops: float = 98.0) -> Dict[str, float]:
-    """Speed-of-light accounting for the channel renderer on one chip.
+                      n_paths: int, *, hbm_bytes_per_s: float,
+                      flops_per_s: float,
+                      n_time: int = 1) -> Dict[str, float]:
+    """Speed-of-light accounting for the channel renderer on one device.
 
+    The caller passes the device's peaks (memory bytes/s, FLOP/s).
     Returns flops, bytes, arithmetic intensity, and the compute/memory
     bound times (seconds). Complex multiply-add = 8 real flops; H output
     = complex64.
@@ -97,8 +98,8 @@ def renderer_roofline(n_ue: int, n_rx_ant: int, n_tx_ant: int, n_sc: int,
     h_bytes = 8.0 * n_ue * q * n_sc * n_time
     in_bytes = 4.0 * n_ue * n_paths * 7
     bytes_total = h_bytes + in_bytes
-    t_mem = bytes_total / (hbm_gbps * 1e9)
-    t_flop = flops / (mxu_tflops * 1e12)
+    t_mem = bytes_total / hbm_bytes_per_s
+    t_flop = flops / flops_per_s
     return {
         "flops": flops,
         "bytes": bytes_total,

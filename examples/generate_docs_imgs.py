@@ -28,6 +28,9 @@ OUT = os.path.join(os.path.dirname(os.path.dirname(
 
 
 def main():
+    from deepmimo_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     os.makedirs(OUT, exist_ok=True)
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:

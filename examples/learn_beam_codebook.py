@@ -6,7 +6,7 @@ with the array geometry. Demonstrates the framework's end-to-end
 differentiability (channels -> beam gains -> loss -> gradients w.r.t.
 codebook AND antenna spacing).
 
-Run: python examples/learn_beam_codebook.py  [--tpu]
+Run: python examples/learn_beam_codebook.py  [--gpu]
 """
 
 import argparse
@@ -20,14 +20,16 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tpu", action="store_true",
-                    help="run on the default (TPU) backend")
+    ap.add_argument("--gpu", action="store_true",
+                    help="run on the default (GPU) backend")
     ap.add_argument("--steps", type=int, default=100)
     args = ap.parse_args()
 
     import jax
-    if not args.tpu:
+    from deepmimo_tpu.utils.compile_cache import enable_compile_cache
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
+    enable_compile_cache()
 
     import jax.numpy as jnp
     import numpy as np
@@ -82,10 +84,8 @@ def main():
                   f"mean-best/mean gain={served:.2f}x", flush=True)
 
     # Serving: evaluate the LEARNED codebook over the scenario through
-    # the fused render->consume kernel — the codebook folds into the
-    # path-sum and H is never materialized (ops/pallas/beamgain.py;
-    # benchmarks/run_beamgain_bench.py measures the speedup vs
-    # render-then-read at 131k users).
+    # render_beam_gains — the codebook folds into the TX response before
+    # the path sum and H is never materialized (ops/beamgain.py).
     from deepmimo_tpu.ops.channel import render_beam_gains
     phases, spacing = params
     w = np.exp(1j * np.asarray(phases)) / np.sqrt(N_ANT)

@@ -11,9 +11,9 @@ as docs/manual.ipynb). Covers the full product loop:
 6. a differentiable training step through the renderer,
 7. a user-sharded multi-device render.
 
-Run: `python examples/tpu_quickstart.py [--cpu]` (--cpu forces the CPU
-backend before JAX initializes — used by CI; on a TPU host the default
-runs on the chip).
+Run: `python examples/quickstart.py [--cpu]` (--cpu forces the CPU
+backend before JAX initializes — used by the tests; on a GPU host the
+default runs on the card).
 """
 
 import os
@@ -98,6 +98,9 @@ def main():
     import jax
     import jax.numpy as jnp
     import deepmimo_tpu as dm
+    from deepmimo_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from deepmimo_tpu import consts as c
 
     print(f"backend: {jax.default_backend()}")

@@ -2,7 +2,7 @@
 
 A deliberately simple, loop-based implementation of the DeepMIMO channel
 math (NaN-padded convention), written directly from the formulas. Used as
-the golden reference for the TPU renderer — the same role the v3 generator
+the golden reference for the JAX renderer — the same role the v3 generator
 plays for the reference v4 (reference test/test_v3_correspondence.py).
 """
 

@@ -1,8 +1,9 @@
-"""Fused beam-gain consumer kernel: interpret-mode parity + product API.
+"""Codebook beam gains from per-path scalars: parity + product API.
 
-The render->consume path (ops/pallas/beamgain.py) folds the codebook
-into the path-sum so H is never materialized; these tests pin it against
-the explicit route |conj(W) . H|^2 computed from the rendered channels.
+The beam-gain path (ops/beamgain.py) folds the codebook into the TX
+response before the path sum so H is never materialized; these tests pin
+it against the explicit route |conj(W) . H|^2 computed from the rendered
+channels.
 """
 
 import numpy as np
@@ -10,19 +11,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from deepmimo_tpu.ops.pallas.beamgain import (fused_beam_gain,
-                                              beam_gain_reference)
-from deepmimo_tpu.ops.pallas.pathsum import pallas_available
-
-pytestmark = pytest.mark.skipif(not pallas_available(),
-                                reason="pallas unavailable")
+from deepmimo_tpu.ops.beamgain import beam_gain, beam_gain_reference
 
 
-def _scalars(u=26, p=25, n_s=1, seed=0):
+def _scalars(u=26, p=25, n_s=1, seed=0, slot_amp=False):
     rng = np.random.RandomState(seed)
     mk = lambda lo, hi, *s: jnp.asarray(rng.uniform(lo, hi, s), jnp.float32)
     return (mk(-3, 3, u, p), mk(-3, 3, u, p), mk(-3, 3, u, p),
-            mk(-3, 3, u, p), mk(0, 1e-2, u, p),
+            mk(-3, 3, u, p), mk(0, 1e-2, u, (n_s if slot_amp else 1) * p),
             mk(-3, 3, u, n_s * p), mk(0, 6, u, p))
 
 
@@ -33,17 +29,19 @@ def _codebook(b, t, seed=1):
             jnp.asarray(np.imag(w), jnp.float32))
 
 
-@pytest.mark.parametrize("rx_shape,tx_shape,n_beams,n_k", [
-    ((1, 1), (8, 8), 16, 64),      # headline shape, skip-rx
-    ((2, 1), (4, 2), 8, 16),       # multi-antenna RX outer product
+@pytest.mark.parametrize("rx_shape,tx_shape,n_beams,n_k,n_s,slot_amp", [
+    ((1, 1), (8, 8), 16, 64, 1, False),   # headline shape, single RX
+    ((2, 1), (4, 2), 8, 16, 1, False),    # multi-antenna RX outer product
+    ((1, 1), (4, 4), 4, 16, 4, True),     # dual-polar layout: per-slot amps
 ])
-def test_fused_matches_reference(rx_shape, tx_shape, n_beams, n_k):
-    args = _scalars()
+def test_fused_matches_reference(rx_shape, tx_shape, n_beams, n_k, n_s,
+                                 slot_amp):
+    """The codebook fold equals |conj(W) . H|^2 through the explicit H."""
+    args = _scalars(n_s=n_s, slot_amp=slot_amp)
     t = tx_shape[0] * tx_shape[1]
     wr, wi = _codebook(n_beams, t)
     ref = beam_gain_reference(*args, wr, wi, rx_shape, tx_shape, n_k)
-    out = fused_beam_gain(*args, wr, wi, rx_shape, tx_shape, n_k,
-                          user_tile=8, interpret=True)
+    out = beam_gain(*args, wr, wi, rx_shape, tx_shape, n_k)
     assert out.shape == ref.shape
     scale = float(jnp.max(ref))
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
@@ -54,21 +52,8 @@ def test_fused_doppler_snapshots():
     args = _scalars(n_s=3)
     wr, wi = _codebook(4, 16)
     ref = beam_gain_reference(*args, wr, wi, (1, 1), (4, 4), 8)
-    out = fused_beam_gain(*args, wr, wi, (1, 1), (4, 4), 8,
-                          user_tile=8, interpret=True)
+    out = beam_gain(*args, wr, wi, (1, 1), (4, 4), 8)
     assert out.shape == (26, 4, 24)          # [U, B, S*K]
-    scale = float(jnp.max(ref))
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               atol=3e-5 * scale)
-
-
-def test_fused_legacy_layout():
-    """P > 64 falls back to the one-user-per-row layout (group = 1)."""
-    args = _scalars(u=10, p=72)
-    wr, wi = _codebook(4, 16)
-    ref = beam_gain_reference(*args, wr, wi, (1, 1), (4, 4), 8)
-    out = fused_beam_gain(*args, wr, wi, (1, 1), (4, 4), 8,
-                          user_tile=8, interpret=True)
     scale = float(jnp.max(ref))
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                atol=3e-5 * scale)
@@ -132,15 +117,14 @@ def test_product_compute_beam_gains_matches_channels():
 
 
 def test_fused_beam_gain_differentiable():
-    """jax.grad through the fused entry: the custom VJP routes the
-    backward through the XLA reference, so codebook learning can drive
-    the SAME function that serves."""
+    """jax.grad through the codebook fold equals the gradient through the
+    explicit H, so codebook learning can drive the SAME function that
+    serves."""
     args = _scalars(u=10, p=6)
     wr, wi = _codebook(4, 16)
 
     def loss_fused(wr, wi):
-        return jnp.sum(fused_beam_gain(*args, wr, wi, (1, 1), (4, 4), 8,
-                                       user_tile=8, interpret=True))
+        return jnp.sum(beam_gain(*args, wr, wi, (1, 1), (4, 4), 8))
 
     def loss_ref(wr, wi):
         return jnp.sum(beam_gain_reference(*args, wr, wi, (1, 1), (4, 4),
@@ -154,9 +138,8 @@ def test_fused_beam_gain_differentiable():
                                    atol=3e-4 * scale)
 
     # gradients also flow to the per-path scalars (geometry calibration)
-    g_amp = jax.grad(lambda amp: jnp.sum(fused_beam_gain(
-        *args[:4], amp, *args[5:], wr, wi, (1, 1), (4, 4), 8,
-        user_tile=8, interpret=True)))(args[4])
+    g_amp = jax.grad(lambda amp: jnp.sum(beam_gain(
+        *args[:4], amp, *args[5:], wr, wi, (1, 1), (4, 4), 8)))(args[4])
     assert bool(jnp.isfinite(g_amp).all())
     assert float(jnp.abs(g_amp).max()) > 0
 
@@ -258,3 +241,27 @@ def test_polar_beam_gains_match_per_pol_fold():
     ds2 = dm.Dataset(dict(base))
     with pytest.raises(ValueError, match="per-polarization"):
         ds2.compute_beam_gains(params, codebook=w)
+
+
+@pytest.mark.parametrize("polar", [False, True])
+def test_beam_gains_reject_rx_filter(polar):
+    """The scalar formulation has no sinc receive filter: beam gains with
+    rx_filter refuse instead of returning maps without it."""
+    from deepmimo_tpu.ops.channel import (render_beam_gains,
+                                          render_beam_gains_polar)
+    from deepmimo_tpu.ops.types import PathData, AntennaPanel, ChannelConfig
+
+    u, p = 4, 3
+    z = np.zeros((u, p), np.float32)
+    paths = PathData.from_numpy(z - 80, z, z + 1e-7, z, z + 90, z, z + 90)
+    cfg = ChannelConfig(bs_shape=(4, 2), subcarriers=64,
+                        selected_subcarriers=tuple(range(16)), num_paths=p,
+                        rx_filter=True)
+    wr, wi = _codebook(4, 8)
+    bs, ue = AntennaPanel.make(), AntennaPanel.make()
+    with pytest.raises(ValueError, match="receive filter"):
+        if polar:
+            pol = jnp.zeros((4, u, p), jnp.float32)
+            render_beam_gains_polar(paths, bs, ue, cfg, pol, pol, wr, wi)
+        else:
+            render_beam_gains(paths, bs, ue, cfg, wr, wi)

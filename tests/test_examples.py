@@ -7,14 +7,14 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def test_tpu_quickstart_runs_end_to_end(tmp_path):
+def test_quickstart_runs_end_to_end(tmp_path):
     env = dict(os.environ,
                PYTHONPATH=os.pathsep.join(
                    [REPO] + os.environ.get("PYTHONPATH", "").split(
                        os.pathsep)))
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "examples",
-                                      "tpu_quickstart.py"), "--cpu"],
+                                      "quickstart.py"), "--cpu"],
         cwd=str(tmp_path), env=env, capture_output=True, text=True,
         timeout=600)
     assert r.returncode == 0, r.stdout + r.stderr

@@ -4,7 +4,7 @@ The named parity suites pin hand-chosen configs; this sweep samples the
 configuration space (panel shapes, path counts across both lane layouts,
 subcarrier selections, rotations incl. per-user, FoV, patterns, Doppler,
 both domains) under fixed seeds and checks the PRODUCTION precision path
-(complex64, fused backend) against the float64 numpy oracle. Catches
+(complex64, the product route) against the float64 numpy oracle. Catches
 cross-term bugs the axis-at-a-time suites cannot.
 """
 
@@ -67,7 +67,7 @@ def test_random_config_matches_oracle(seed):
         ue_pattern=spec["ue_pattern"], bs_fov=spec["bs_fov"],
         enable_doppler=spec["doppler"],
         doppler_times=spec["doppler_times"],
-        dtype="complex64", backend="fused", planes_layout="packed")
+        dtype="complex64", planes_layout="packed")
 
     paths = PathData.from_numpy(
         power=data["power"], phase=data["phase"], delay=data["delay"],
@@ -113,7 +113,7 @@ def test_random_config_polar_matches_four_renders(seed):
     on random configs (both lane layouts, random rotations, Doppler)."""
     from deepmimo_tpu.ops.channel import (render_channels_planes_polar,
                                           unpack_polar_planes_np,
-                                          polar_fused_eligible)
+                                          fused_render_eligible)
 
     rng = np.random.RandomState(2000 + seed)
     p = int(rng.choice([6, 25, 40]))
@@ -128,8 +128,8 @@ def test_random_config_polar_matches_four_renders(seed):
         selected_subcarriers=tuple(range(k)), num_paths=p,
         enable_doppler=doppler,
         doppler_times=(0.0, 1e-3) if doppler else (0.0,),
-        dtype="complex64", backend="fused", planes_layout="packed")
-    assert polar_fused_eligible(cfg, 4)
+        dtype="complex64", planes_layout="packed")
+    assert fused_render_eligible(cfg)
 
     paths = PathData.from_numpy(
         power=data["power"], phase=data["phase"], delay=data["delay"],
@@ -190,7 +190,7 @@ def test_random_config_beamgain_matches_fold(seed):
         subcarriers=512, selected_subcarriers=tuple(range(k)),
         num_paths=p, enable_doppler=doppler,
         doppler_times=(0.0, 2e-3) if doppler else (0.0,),
-        dtype="complex64", backend="fused", planes_layout="packed")
+        dtype="complex64", planes_layout="packed")
 
     paths = PathData.from_numpy(
         power=data["power"], phase=data["phase"], delay=data["delay"],

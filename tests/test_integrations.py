@@ -189,6 +189,7 @@ def test_pipeline_gated_tools_raise(tmp_path):
 # ----------------------------------------------------------------------------
 
 def test_stage_timer():
+    import jax.numpy as jnp
     from deepmimo_tpu.utils.profiling import StageTimer
     t = StageTimer(sync=False)
     with t.stage("outer"):
@@ -198,14 +199,30 @@ def test_stage_timer():
     assert "outer" in totals and "outer/inner" in totals
     t.report(printer=lambda *a: None)
 
+    # A syncing stage blocks on the outputs appended to it; errors from
+    # inside the stage propagate instead of being swallowed.
+    t = StageTimer()
+    with t.stage("render") as out:
+        out.append(jnp.ones((4, 4)) * 2)
+    assert t.totals()["render"] >= 0
+    with pytest.raises(ZeroDivisionError):
+        with t.stage("fails"):
+            1 / 0
+    assert "fails" in t.totals()
+
 
 def test_roofline_accounting():
     from deepmimo_tpu.utils.profiling import renderer_roofline
     r = renderer_roofline(n_ue=131072, n_rx_ant=1, n_tx_ant=64, n_sc=64,
-                          n_paths=25)
+                          n_paths=25, hbm_bytes_per_s=3.35e12,
+                          flops_per_s=165e12)
     assert r["flops"] == 8 * 131072 * 64 * 25 * 64
     assert r["t_speed_of_light_s"] > 0
     assert r["users_per_s_sol"] > 1e6
+    assert r["t_memory_bound_s"] == r["bytes"] / 3.35e12
+    # No default device: the caller must pass the peaks.
+    with pytest.raises(TypeError):
+        renderer_roofline(131072, 1, 64, 64, 25)
 
 
 def test_v3_roundtrip(dataset, tmp_path):

@@ -105,6 +105,13 @@ def test_safe_arccos_gradient_finite_at_boundary():
     assert np.isfinite(np.asarray(g))
     g = jax.grad(lambda x: geo.safe_arccos(x))(jnp.asarray(-1.0))
     assert np.isfinite(np.asarray(g))
+    # Inside the clamp the gradient is exact, in float32 and float64:
+    # d arccos(x)/dx = -1/sin(t) at x = cos(t), 0.001 deg from the pole.
+    t = np.deg2rad(1e-3)
+    g = jax.grad(geo.safe_arccos)(jnp.asarray(np.cos(t), jnp.float64))
+    np.testing.assert_allclose(float(g), -1 / np.sin(t), rtol=1e-6)
+    g = jax.grad(geo.safe_arccos)(jnp.asarray(0.5, jnp.float32))
+    np.testing.assert_allclose(float(g), -1 / np.sqrt(0.75), rtol=1e-6)
 
 
 def test_steering_vec_normalized():

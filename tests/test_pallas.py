@@ -1,311 +1,242 @@
-"""Pallas fused path-sum kernel: interpret-mode correctness + gradients."""
+"""Fused GPU render kernel: interpret-mode parity, VJP, and kernel choice.
+
+The kernel (ops/pallas/render.py) runs here in the Pallas interpreter
+against its plain XLA reference. Tests marked ``gpu`` compile it for the
+card; they skip without one and run from chip_smoke.py on the GPU.
+"""
+
+import dataclasses
+import sys
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from deepmimo_tpu.ops.pallas.pathsum import (fused_path_sum,
-                                             _reference_impl,
-                                             pallas_available)
+from deepmimo_tpu.ops import channel as C
+from deepmimo_tpu.ops.pallas import render as R
+from deepmimo_tpu.ops.types import PathData, AntennaPanel, ChannelConfig
 
-pytestmark = pytest.mark.skipif(not pallas_available(),
-                                reason="pallas unavailable")
+sys.path.insert(0, "tests")
+from oracle import make_synthetic_paths  # noqa: E402
 
 
-def _inputs(u=12, r=2, t=8, p=5, k=9, seed=0):
+def _scalars(u, p, n_s=1, slot_amp=False, seed=0):
     rng = np.random.RandomState(seed)
-    f32 = lambda *s: jnp.asarray(rng.uniform(-1, 1, s), dtype=jnp.float32)
-    return (f32(u, r, p), f32(u, r, p), f32(u, t, p), f32(u, t, p),
-            f32(u, p), f32(u, p),
-            jnp.asarray(rng.uniform(0, 6, (u, p)), dtype=jnp.float32),
-            jnp.asarray(np.arange(k), dtype=jnp.float32))
+    mk = lambda lo, hi, *s: jnp.asarray(rng.uniform(lo, hi, s), jnp.float32)
+    return (mk(-3, 3, u, p), mk(-3, 3, u, p), mk(-3, 3, u, p),
+            mk(-3, 3, u, p), mk(0, 1e-3, u, (n_s if slot_amp else 1) * p),
+            mk(-3, 3, u, n_s * p), mk(0, 6, u, p))
 
 
-def test_kernel_matches_reference_interpret():
-    args = _inputs()
-    hr, hi = fused_path_sum(*args, user_tile=4, k_tile=4, interpret=True)
-    rr, ri = _reference_impl(*args)
-    np.testing.assert_allclose(np.asarray(hr), np.asarray(rr), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(hi), np.asarray(ri), atol=1e-5)
+def _max_rel(out, ref):
+    out = tuple(np.asarray(x, np.float32) for x in out)
+    scale = max(float(np.abs(r).max()) for r in ref)
+    return max(float(np.abs(o - np.asarray(r)).max())
+               for o, r in zip(out, ref)) / scale
 
 
-def test_kernel_ragged_padding():
-    """U and K not multiples of the tiles: padded internally, un-padded out."""
-    args = _inputs(u=7, k=5)
-    hr, hi = fused_path_sum(*args, user_tile=4, k_tile=4, interpret=True)
-    assert hr.shape == (7, 16, 5)
-    rr, ri = _reference_impl(*args)
-    np.testing.assert_allclose(np.asarray(hr), np.asarray(rr), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(hi), np.asarray(ri), atol=1e-5)
+def _split(h, packed):
+    """Kernel output -> (hr, hi) [U, Q, S*K]."""
+    if packed:
+        sk = h.shape[-1] // 2
+        return h[..., :sk], h[..., sk:]
+    return h[0], h[1]
 
 
-def test_kernel_gradients_match_reference():
-    args = _inputs(u=6, k=4)
-    cot = (jnp.ones((6, 16, 4)), 0.5 * jnp.ones((6, 16, 4)))
-
-    def loss_pallas(*a):
-        hr, hi = fused_path_sum(*a, user_tile=4, k_tile=4, interpret=True)
-        return jnp.vdot(cot[0], hr) + jnp.vdot(cot[1], hi)
-
-    def loss_ref(*a):
-        hr, hi = _reference_impl(*a)
-        return jnp.vdot(cot[0], hr) + jnp.vdot(cot[1], hi)
-
-    gp = jax.grad(loss_pallas, argnums=tuple(range(7)))(*args)
-    gr = jax.grad(loss_ref, argnums=tuple(range(7)))(*args)
-    for a, b in zip(gp, gr):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-4)
-
-
-def test_render_channels_pallas_backend():
-    """End-to-end renderer with backend='pallas' matches the XLA backend."""
-    import sys
-    sys.path.insert(0, "tests")
-    from oracle import make_synthetic_paths
-    from deepmimo_tpu.ops.types import (PathData, AntennaPanel,
-                                        ChannelConfig)
-    from deepmimo_tpu.ops.channel import render_channels
-
-    data = make_synthetic_paths(n_ue=10, max_paths=6, seed=44)
-    paths = PathData.from_numpy(
-        power=data["power"], phase=data["phase"], delay=data["delay"],
-        aoa_az=data["aoa_az"], aoa_el=data["aoa_el"],
-        aod_az=data["aod_az"], aod_el=data["aod_el"], dtype=jnp.float32)
-    bs = AntennaPanel.make((5.0, 0.0, 20.0))
-    ue = AntennaPanel.make()
-    kw = dict(bs_shape=(4, 2), ue_shape=(2, 1), freq_domain=True,
-              subcarriers=64, selected_subcarriers=tuple(range(6)),
-              num_paths=6)
-    h_xla = np.asarray(render_channels(paths, bs, ue,
-                                       ChannelConfig(**kw, backend="xla")))
-    h_pal = np.asarray(render_channels(paths, bs, ue,
-                                       ChannelConfig(**kw,
-                                                     backend="pallas")))
-    scale = np.abs(h_xla).max()
-    np.testing.assert_allclose(h_pal, h_xla, atol=1e-5 * scale)
+# (name, U, P, rx, tx, K, S, slot_amp, packed, tiles)
+KERNEL_CASES = [
+    ("p_not_pow2", 24, 25, (1, 1), (8, 8), 16, 1, False, False, None),
+    ("mimo_rx", 12, 25, (2, 2), (4, 2), 16, 1, False, True, None),
+    ("single_antenna", 10, 7, (1, 1), (1, 1), 8, 1, False, False, None),
+    ("ragged_row_block", 9, 13, (2, 1), (2, 2), 16, 1, False, True,
+     R.Tiles(rows=16, cols=16, num_warps=4)),
+    ("doppler_slots", 8, 6, (1, 2), (2, 4), 8, 3, False, False, None),
+    ("per_slot_amp", 8, 7, (2, 1), (2, 2), 16, 4, True, True, None),
+    ("paths_over_32", 6, 40, (1, 1), (4, 4), 16, 1, False, False, None),
+    ("row_blocks", 5, 9, (2, 1), (8, 8), 16, 1, False, True,
+     R.Tiles(rows=64, cols=16, num_warps=4)),
+    ("ragged_column_blocks", 5, 9, (1, 1), (4, 2), 40, 2, False, False,
+     R.Tiles(rows=16, cols=32, num_warps=8)),
+]
 
 
-def test_fused_render_kernel_matches_reference():
-    """ops/pallas/render.py fused kernel vs its XLA reference, incl. grads."""
-    from deepmimo_tpu.ops.pallas.render import fused_render, _reference_impl
-
-    rng = np.random.RandomState(0)
-    U, P, K = 24, 25, 16
-    mk = lambda lo, hi: jnp.asarray(rng.uniform(lo, hi, (U, P)), jnp.float32)
-    args = (mk(-3, 3), mk(-3, 3), mk(-3, 3), mk(-3, 3),
-            mk(0, 1e-4), mk(-3, 3), mk(0, 6))
-    for rx_shape, tx_shape in [((1, 1), (8, 8)), ((2, 2), (4, 2)),
-                               ((1, 1), (1, 1))]:
-        ref = _reference_impl(*args, rx_shape, tx_shape, K)
-        out = fused_render(*args, rx_shape, tx_shape, K, 8, True)
-        for a, b in zip(ref, out):
-            scale = float(jnp.abs(a).max())
-            np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                       atol=3e-5 * scale)
-
-    # Folded snapshot axis: psi [U, S*P] -> H [U, Q, S*K]
-    psi_s = jnp.asarray(rng.uniform(-3, 3, (U, 3 * P)), jnp.float32)
-    args_s = args[:5] + (psi_s,) + args[6:]
-    ref = _reference_impl(*args_s, (2, 1), (4, 4), K)
-    out = fused_render(*args_s, (2, 1), (4, 4), K, 8, True)
-    assert out[0].shape == (U, 2 * 16, 3 * K)
-    for a, b in zip(ref, out):
-        scale = float(jnp.abs(a).max())
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   atol=3e-5 * scale)
-
-    def loss(fn):
-        def f(a):
-            hr, hi = fn(a)
-            return jnp.sum(hr ** 2 + hi ** 2)
-        return f
-
-    g1 = jax.grad(loss(lambda a: fused_render(*a, (1, 1), (4, 4), 8, 8,
-                                              True)))(args)
-    g2 = jax.grad(loss(lambda a: _reference_impl(*a, (1, 1), (4, 4),
-                                                 8)))(args)
-    for a, b in zip(g1, g2):
-        scale = float(jnp.abs(b).max()) + 1e-12
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   atol=3e-4 * scale)
-
-
-def test_render_channels_planes_fused_backend():
-    """backend='fused' planes renderer matches 'xla' across configs."""
-    import dataclasses
-    import sys
-    sys.path.insert(0, "tests")
-    from oracle import make_synthetic_paths
-    from deepmimo_tpu.ops.types import (PathData, AntennaPanel,
-                                        ChannelConfig)
-    from deepmimo_tpu.ops.channel import render_channels_planes
-
-    data = make_synthetic_paths(n_ue=12, max_paths=8, seed=3,
-                                with_doppler=True)
-    paths = PathData.from_numpy(
-        power=data["power"], phase=data["phase"], delay=data["delay"],
-        aoa_az=data["aoa_az"], aoa_el=data["aoa_el"],
-        aod_az=data["aod_az"], aod_el=data["aod_el"],
-        doppler_vel=data["doppler_vel"], doppler_acc=data["doppler_acc"],
-        dtype=jnp.float32)
-    bs = AntennaPanel.make((10.0, 20.0, 30.0))
-    ue = AntennaPanel.make()
-
-    cases = [
-        dict(bs_shape=(4, 4), ue_shape=(1, 1),
-             selected_subcarriers=tuple(range(16))),
-        dict(bs_shape=(2, 2), ue_shape=(2, 1),
-             selected_subcarriers=tuple(range(0, 64, 4))),  # stride 4
-        dict(bs_shape=(4, 2), ue_shape=(1, 1), selected_subcarriers=(5,)),
-        dict(bs_shape=(2, 2), ue_shape=(1, 1),
-             selected_subcarriers=tuple(range(8)),
-             bs_pattern="halfwave-dipole", bs_fov=(120.0, 90.0)),
-        dict(bs_shape=(2, 2), ue_shape=(1, 1),
-             selected_subcarriers=tuple(range(8)),
-             enable_doppler=True, doppler_times=(0.0, 1e-3)),
-    ]
-    for kw in cases:
-        cfg_x = ChannelConfig(freq_domain=True, subcarriers=64,
-                              bandwidth=10e6, num_paths=8,
-                              dtype="complex64", backend="xla", **kw)
-        cfg_f = dataclasses.replace(cfg_x, backend="fused")
-        hx = np.asarray(render_channels_planes(paths, bs, ue, cfg_x))
-        hf = np.asarray(render_channels_planes(paths, bs, ue, cfg_f))
-        assert hx.shape == hf.shape
-        scale = np.abs(hx).max()
-        np.testing.assert_allclose(hf, hx, atol=5e-5 * scale)
+@pytest.mark.parametrize("case", KERNEL_CASES, ids=[c[0] for c in
+                                                    KERNEL_CASES])
+def test_fused_render_kernel_matches_reference(case):
+    """Interpret-mode kernel vs the plain XLA reference: path padding to a
+    power of two, ragged row and column blocks, slots, per-slot
+    amplitudes, both output layouts."""
+    _, u, p, rx, tx, k, s, slot_amp, packed, tiles = case
+    args = _scalars(u, p, s, slot_amp)
+    ref = R._reference_impl(*args, rx, tx, k)
+    h = R.fused_render(*args, rx, tx, k, interpret=True, packed=packed,
+                       tiles=tiles)
+    q = rx[0] * rx[1] * tx[0] * tx[1]
+    assert h.shape == ((u, q, 2 * s * k) if packed else (2, u, q, s * k))
+    assert _max_rel(_split(h, packed), ref) < 3e-5
 
 
 def test_fused_render_packed_layout_matches_stacked():
     """packed=True returns [U, Q, 2SK] with hr||hi on the minor dim and
-    identical numbers (the packing is algebraic — two dots — not a copy)."""
-    from deepmimo_tpu.ops.pallas.render import fused_render
-
-    rng = np.random.RandomState(3)
-    U, P, K = 24, 25, 64
-    mk = lambda lo, hi: jnp.asarray(rng.uniform(lo, hi, (U, P)), jnp.float32)
-    args = (mk(-3, 3), mk(-3, 3), mk(-3, 3), mk(-3, 3),
-            mk(0, 1e-4), mk(-3, 3), mk(0, 6))
+    the same numbers as the stacked [2, U, Q, SK] layout."""
+    args = _scalars(12, 25)
     for rx_shape, tx_shape in [((1, 1), (8, 8)), ((2, 2), (4, 2))]:
-        stacked = fused_render(*args, rx_shape, tx_shape, K, 8, True,
-                               "float32", False)
-        packed = fused_render(*args, rx_shape, tx_shape, K, 8, True,
-                              "float32", True)
+        stacked = R.fused_render(*args, rx_shape, tx_shape, 64,
+                                 interpret=True)
+        packed = R.fused_render(*args, rx_shape, tx_shape, 64,
+                                interpret=True, packed=True)
         q = stacked.shape[2]
-        assert packed.shape == (U, q, 2 * K)
-        np.testing.assert_allclose(np.asarray(packed[..., :K]),
-                                   np.asarray(stacked[0]), atol=1e-6)
-        np.testing.assert_allclose(np.asarray(packed[..., K:]),
-                                   np.asarray(stacked[1]), atol=1e-6)
+        assert packed.shape == (12, q, 128)
+        np.testing.assert_array_equal(np.asarray(packed[..., :64]),
+                                      np.asarray(stacked[0]))
+        np.testing.assert_array_equal(np.asarray(packed[..., 64:]),
+                                      np.asarray(stacked[1]))
 
-    # gradients flow through the packed VJP too
     def loss(a):
-        h = fused_render(*a, (1, 1), (4, 4), 64, 8, True, "float32", True)
+        h = R.fused_render(*a, (1, 1), (4, 4), 64, interpret=True,
+                           packed=True)
         return jnp.sum(h ** 2)
 
     g = jax.grad(loss)(args)
     assert all(np.isfinite(np.asarray(x)).all() for x in g)
 
 
-def test_fused_render_pallas_backward_matches_xla_vjp():
-    """The recompute-in-VMEM backward kernel vs the XLA reference VJP,
-    across panel shapes, snapshot folding, and both output layouts."""
-    from deepmimo_tpu.ops.pallas import render as R
+@pytest.mark.parametrize("rx_shape,tx_shape,n_s,slot_amp,packed", [
+    ((1, 1), (8, 8), 1, False, False),   # single RX antenna (zero dgry)
+    ((2, 2), (4, 2), 1, False, False),   # full RX chain
+    ((1, 2), (2, 4), 2, False, True),    # slots, packed cotangent
+    ((2, 1), (2, 2), 4, True, False),    # per-slot amplitudes
+    ((1, 1), (4, 4), 1, False, True),    # packed (hr||hi) cotangent
+])
+def test_fused_render_vjp_matches_reference_vjp(rx_shape, tx_shape, n_s,
+                                                slot_amp, packed):
+    """The custom VJP equals jax.vjp of the reference for all 7 inputs."""
+    u, p, k = 10, 13, 16
+    args = _scalars(u, p, n_s, slot_amp, seed=11)
+    rng = np.random.RandomState(12)
+    q = rx_shape[0] * rx_shape[1] * tx_shape[0] * tx_shape[1]
+    shape = (u, q, 2 * n_s * k) if packed else (2, u, q, n_s * k)
+    ct = jnp.asarray(rng.uniform(-1, 1, shape), jnp.float32)
+    _, vjp_k = jax.vjp(lambda *a: R.fused_render(
+        *a, rx_shape, tx_shape, k, interpret=True, packed=packed), *args)
 
-    rng = np.random.RandomState(11)
-    U, P, K = 20, 13, 16
-
-    def run(rx_shape, tx_shape, n_s, packed):
-        mk = lambda lo, hi, *s: jnp.asarray(rng.uniform(lo, hi, s),
-                                            jnp.float32)
-        args = (mk(-3, 3, U, P), mk(-3, 3, U, P),
-                mk(-3, 3, U, P), mk(-3, 3, U, P),
-                mk(0, 1e-3, U, P), mk(-3, 3, U, n_s * P), mk(0, 6, U, P))
-        q = rx_shape[0] * rx_shape[1] * tx_shape[0] * tx_shape[1]
-        if packed:
-            ct = mk(-1, 1, U, q, 2 * n_s * K)
-        else:
-            ct = mk(-1, 1, 2, U, q, n_s * K)
-        g_pal = R._bwd_impl(*args, ct, rx_shape, tx_shape, K, 8, True,
-                            "float32", packed)
-        g_ref = R._bwd_xla(rx_shape, tx_shape, K, packed, args, ct)
-        assert len(g_pal) == len(g_ref) == 7
-        for a, b in zip(g_pal, g_ref):
-            scale = float(jnp.abs(b).max()) + 1e-12
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       atol=3e-4 * scale)
-
-    run((1, 1), (8, 8), 1, False)   # single-ant RX shortcut (zero dgry)
-    run((2, 2), (4, 2), 1, False)   # full RX chain
-    run((1, 2), (2, 4), 2, False)   # folded Doppler snapshots
-    run((1, 1), (4, 4), 1, True)    # packed (hr||hi) cotangent
-    run((2, 1), (2, 2), 2, True)    # packed + snapshots
+    def ref(*a):
+        hr, hi = R._reference_impl(*a, rx_shape, tx_shape, k)
+        return (jnp.concatenate((hr, hi), -1) if packed
+                else jnp.stack((hr, hi)))
+    _, vjp_r = jax.vjp(ref, *args)
+    for a, b in zip(vjp_k(ct), vjp_r(ct)):
+        assert a.shape == b.shape
+        scale = float(jnp.abs(b).max()) + 1e-12
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   atol=1e-5 * scale)
 
 
-def test_fused_render_grad_uses_pallas_backward(monkeypatch):
-    """fused_render's VJP routes through the backward kernel (not the XLA
-    fallback) when the tile fits, and falls back cleanly when it doesn't."""
-    from deepmimo_tpu.ops.pallas import render as R
+def test_fused_render_per_snapshot_amp():
+    """amp [U, S*P] (dual-polar layout): every slot carries its own
+    amplitudes; forward and gradients match the reference."""
+    u, p, k, s = 16, 7, 16, 4
+    args = _scalars(u, p, s, slot_amp=True, seed=5)
+    ref = R._reference_impl(*args, (1, 1), (4, 4), k)
+    out = R.fused_render(*args, (1, 1), (4, 4), k, interpret=True)
+    assert out.shape == (2, u, 16, s * k)
+    assert _max_rel(_split(out, False), ref) < 3e-5
 
-    rng = np.random.RandomState(5)
-    U, P, K = 12, 7, 8
-    mk = lambda lo, hi: jnp.asarray(rng.uniform(lo, hi, (U, P)), jnp.float32)
-    args = (mk(-3, 3), mk(-3, 3), mk(-3, 3), mk(-3, 3),
-            mk(0, 1e-3), mk(-3, 3), mk(0, 6))
-
-    def loss(a):
-        h = R.fused_render(*a, (2, 1), (2, 2), K, 8, True)
-        return jnp.sum(h ** 2)
-
-    calls = {"pallas": 0, "xla": 0}
-    orig_impl, orig_xla = R._bwd_impl, R._bwd_xla
-    monkeypatch.setattr(R, "_bwd_impl", lambda *a, **k: (
-        calls.__setitem__("pallas", calls["pallas"] + 1),
-        orig_impl(*a, **k))[1])
-    monkeypatch.setattr(R, "_bwd_xla", lambda *a, **k: (
-        calls.__setitem__("xla", calls["xla"] + 1),
-        orig_xla(*a, **k))[1])
-    g = jax.grad(loss)(args)
-    assert calls == {"pallas": 1, "xla": 0}
-    assert all(np.isfinite(np.asarray(x)).all() for x in g)
-
-    # An over-VMEM tile falls back to the XLA VJP.
-    monkeypatch.setattr(R, "pick_user_tile_bwd", lambda *a, **k: 0)
-    g2 = jax.grad(loss)(args)
-    assert calls["xla"] == 1
-    for a, b in zip(g, g2):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=3e-5)
+    def loss(fn):
+        return lambda amp: jnp.sum(fn(*args[:4], amp, *args[5:]) ** 2)
+    g = jax.grad(loss(lambda *a: R.fused_render(
+        *a, (1, 1), (4, 4), k, interpret=True)))(args[4])
+    g_ref = jax.grad(loss(lambda *a: jnp.stack(R._reference_impl(
+        *a, (1, 1), (4, 4), k))))(args[4])
+    assert g.shape == (u, s * p)
+    np.testing.assert_allclose(np.asarray(g), np.asarray(g_ref),
+                               atol=1e-5 * float(jnp.abs(g_ref).max()))
 
 
-def test_render_channels_planes_packed_cfg():
-    """cfg.planes_layout='packed' end-to-end (fused + xla backends agree),
-    with fallback to stacked when S*K is not 64-aligned."""
-    import sys
-    sys.path.insert(0, "tests")
-    from oracle import make_synthetic_paths
-    from deepmimo_tpu.ops.types import (PathData, AntennaPanel,
-                                        ChannelConfig)
-    from deepmimo_tpu.ops.channel import render_channels_planes, \
-        _packed_layout
+@pytest.fixture
+def route(monkeypatch):
+    """``route(kernel)`` sends the product renderers through the fused
+    kernel, run in the Pallas interpreter (the CPU stand-in for the GPU
+    path), or through plain XLA, and drops traces of the other route."""
+    real = R.fused_render
+    monkeypatch.setattr(R, "fused_render",
+                        lambda *a, **k: real(*a, interpret=True, **k))
 
-    data = make_synthetic_paths(n_ue=12, max_paths=6, seed=9)
-    paths = PathData.from_numpy(
+    def set_route(kernel):
+        monkeypatch.setattr(C, "_use_render_kernel",
+                            lambda cfg: kernel and
+                            C.fused_render_eligible(cfg))
+        jax.clear_caches()
+    yield set_route
+    jax.clear_caches()
+
+
+def _paths(n_ue, max_paths, seed, doppler=False):
+    data = make_synthetic_paths(n_ue=n_ue, max_paths=max_paths, seed=seed,
+                                with_doppler=doppler)
+    return PathData.from_numpy(
         power=data["power"], phase=data["phase"], delay=data["delay"],
         aoa_az=data["aoa_az"], aoa_el=data["aoa_el"],
-        aod_az=data["aod_az"], aod_el=data["aod_el"], dtype=jnp.float32)
+        aod_az=data["aod_az"], aod_el=data["aod_el"],
+        doppler_vel=data.get("doppler_vel"),
+        doppler_acc=data.get("doppler_acc"), dtype=jnp.float32)
+
+
+FUSED_BACKEND_CASES = {
+    "single_rx": dict(bs_shape=(4, 4), ue_shape=(1, 1),
+                      selected_subcarriers=tuple(range(16))),
+    "stride4": dict(bs_shape=(2, 2), ue_shape=(2, 1),
+                    selected_subcarriers=tuple(range(0, 64, 4))),
+    "one_subcarrier": dict(bs_shape=(4, 2), ue_shape=(1, 1),
+                           selected_subcarriers=(5,)),
+    "pattern_and_fov": dict(bs_shape=(2, 2), ue_shape=(1, 1),
+                            selected_subcarriers=tuple(range(8)),
+                            bs_pattern="halfwave-dipole",
+                            bs_fov=(120.0, 90.0)),
+    "doppler": dict(bs_shape=(2, 2), ue_shape=(1, 1),
+                    selected_subcarriers=tuple(range(8)),
+                    enable_doppler=True, doppler_times=(0.0, 1e-3)),
+}
+
+
+@pytest.mark.parametrize("name", list(FUSED_BACKEND_CASES))
+def test_render_channels_planes_fused_backend(name, route):
+    """The product's kernel branch of render_channels_planes matches its
+    plain XLA branch (layouts, Doppler time axis, FoV, patterns)."""
+    paths = _paths(12, 8, 3, doppler=True)
+    bs = AntennaPanel.make((10.0, 20.0, 30.0))
+    ue = AntennaPanel.make()
+    cfg = ChannelConfig(freq_domain=True, subcarriers=64, bandwidth=10e6,
+                        num_paths=8, dtype="complex64",
+                        **FUSED_BACKEND_CASES[name])
+    route(False)
+    hx = np.asarray(C.render_channels_planes(paths, bs, ue, cfg))
+    route(True)
+    assert C._use_render_kernel(cfg)
+    hf = np.asarray(C.render_channels_planes(paths, bs, ue, cfg))
+    assert hx.shape == hf.shape
+    np.testing.assert_allclose(hf, hx, atol=5e-5 * np.abs(hx).max())
+
+
+def test_render_channels_planes_packed_cfg(route):
+    """cfg.planes_layout='packed' end-to-end (kernel and XLA branches
+    agree), with fallback to stacked when S*K is not 64-aligned."""
+    paths = _paths(12, 6, 9)
     bs = AntennaPanel.make((5.0, 0.0, 20.0))
     ue = AntennaPanel.make()
     kw = dict(bs_shape=(4, 2), ue_shape=(1, 1), freq_domain=True,
               subcarriers=128, selected_subcarriers=tuple(range(64)),
               num_paths=6)
 
-    stacked = np.asarray(render_channels_planes(
-        paths, bs, ue, ChannelConfig(**kw, backend="fused")))
-    for backend in ("fused", "xla"):
-        cfg = ChannelConfig(**kw, backend=backend, planes_layout="packed")
-        assert _packed_layout(cfg)
-        pk = np.asarray(render_channels_planes(paths, bs, ue, cfg))
+    route(False)
+    stacked = np.asarray(C.render_channels_planes(
+        paths, bs, ue, ChannelConfig(**kw)))
+    for kernel in (True, False):
+        route(kernel)
+        cfg = ChannelConfig(**kw, planes_layout="packed")
+        assert C._packed_layout(cfg)
+        pk = np.asarray(C.render_channels_planes(paths, bs, ue, cfg))
         assert pk.shape == stacked.shape[1:-1] + (2 * stacked.shape[-1],)
         np.testing.assert_allclose(pk[..., :64], stacked[0], atol=2e-6)
         np.testing.assert_allclose(pk[..., 64:], stacked[1], atol=2e-6)
@@ -315,244 +246,40 @@ def test_render_channels_planes_packed_cfg():
                               freq_domain=True, subcarriers=128,
                               selected_subcarriers=tuple(range(6)),
                               num_paths=6, planes_layout="packed")
-    assert not _packed_layout(cfg_small)
-    out = render_channels_planes(paths, bs, ue, cfg_small)
+    assert not C._packed_layout(cfg_small)
+    out = C.render_channels_planes(paths, bs, ue, cfg_small)
     assert out.shape[0] == 2
 
 
-def test_fused_render_lane_packed_matches_reference():
-    """Default 32-aligned packed layout vs the XLA reference.
-
-    The packed layout groups 128 // ceil(P, 32) users per lane group
-    with per-residue sliced concat-dots (fwd) and masked-accumulate
-    dots (bwd); this pins its correctness in interpret mode across both
-    output layouts and the legacy NO_PACK fallback.
-    """
-    import deepmimo_tpu.ops.pallas.render as R
-
-    rng = np.random.RandomState(7)
-    U, P, K = 26, 25, 16          # U not a multiple of the group tile
-    mk = lambda lo, hi: jnp.asarray(rng.uniform(lo, hi, (U, P)), jnp.float32)
-    args = (mk(-3, 3), mk(-3, 3), mk(-3, 3), mk(-3, 3),
-            mk(0, 1e-4), mk(-3, 3), mk(0, 6))
-    assert not R.NO_PACK
-    try:
-        assert R._grouping(P) == (4, 32)
-        # Legacy (no-pack) layout agrees with the packed default.
-        R.NO_PACK = True
-        h_legacy = R.fused_render(*args, (1, 1), (4, 4), K, 10, True,
-                                  "float32", True)
-        R.NO_PACK = False
-        h_packed = R.fused_render(*args, (1, 1), (4, 4), K, 10, True,
-                                  "float32", True)
-        np.testing.assert_allclose(np.asarray(h_packed),
-                                   np.asarray(h_legacy), atol=1e-9)
-        for rx_shape, tx_shape, packed in [((1, 1), (4, 4), True),
-                                           ((2, 1), (2, 2), False)]:
-            ref = R._reference_impl(*args, rx_shape, tx_shape, K)
-            out = R.fused_render(*args, rx_shape, tx_shape, K, 10, True,
-                                 "float32", packed)
-            if packed:
-                out = (out[..., :K], out[..., K:])
-            for a, b in zip(ref, out):
-                scale = float(jnp.abs(a).max())
-                np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                           atol=3e-5 * scale)
-
-        def loss(a):
-            hr, hi = R.fused_render(*a, (2, 1), (2, 2), 8, 10, True,
-                                    "float32", False)
-            return jnp.sum(hr ** 2 + hi ** 2)
-
-        def loss_ref(a):
-            hr, hi = R._reference_impl(*a, (2, 1), (2, 2), 8)
-            return jnp.sum(hr ** 2 + hi ** 2)
-
-        g1 = jax.grad(loss)(args)
-        g2 = jax.grad(loss_ref)(args)
-        for a, b in zip(g1, g2):
-            scale = float(jnp.abs(b).max()) + 1e-12
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       atol=3e-4 * scale)
-
-        # Packed (hr||hi)-layout backward under lane-packing (the
-        # per-residue ct row slices + masked dots path).
-        def loss_pk(a):
-            h = R.fused_render(*a, (1, 1), (4, 4), 8, 10, True,
-                               "float32", True)
-            return jnp.sum(h ** 2)
-
-        def loss_pk_ref(a):
-            hr, hi = R._reference_impl(*a, (1, 1), (4, 4), 8)
-            return jnp.sum(hr ** 2 + hi ** 2)
-
-        g3 = jax.grad(loss_pk)(args)
-        g4 = jax.grad(loss_pk_ref)(args)
-        for a, b in zip(g3, g4):
-            scale = float(jnp.abs(b).max()) + 1e-12
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       atol=3e-4 * scale)
-    finally:
-        R.NO_PACK = False
-
-
-def test_fused_render_per_snapshot_amp():
-    """amp [U, S*P] (dual-polar layout): fwd + both backward layouts.
-
-    Each snapshot slot carries its OWN amplitudes (a polarization), so
-    amp no longer factors out of the subcarrier contraction — exercises
-    the amp-scaled dE operands in the backward kernel.
-    """
-    from deepmimo_tpu.ops.pallas import render as R
-
-    rng = np.random.RandomState(5)
-    U, P, K, S = 16, 7, 16, 4
-    mk = lambda lo, hi, *s: jnp.asarray(rng.uniform(lo, hi, s), jnp.float32)
-    for rx_shape, tx_shape in [((1, 1), (4, 4)), ((2, 1), (2, 2))]:
-        args = (mk(-3, 3, U, P), mk(-3, 3, U, P),
-                mk(-3, 3, U, P), mk(-3, 3, U, P),
-                mk(0, 1e-3, U, S * P),          # per-snapshot amp
-                mk(-3, 3, U, S * P), mk(0, 6, U, P))
-        q = rx_shape[0] * rx_shape[1] * tx_shape[0] * tx_shape[1]
-        ref = R._reference_impl(*args, rx_shape, tx_shape, K)
-        out = R.fused_render(*args, rx_shape, tx_shape, K, 8, True)
-        assert out[0].shape == (U, q, S * K)
-        for a, b in zip(ref, out):
-            scale = float(jnp.abs(a).max())
-            np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                       atol=3e-5 * scale)
-        for packed in (False, True):
-            ct = (mk(-1, 1, U, q, 2 * S * K) if packed
-                  else mk(-1, 1, 2, U, q, S * K))
-            g_pal = R._bwd_impl(*args, ct, rx_shape, tx_shape, K, 8, True,
-                                "float32", packed)
-            g_ref = R._bwd_xla(rx_shape, tx_shape, K, packed, args, ct)
-            assert g_pal[4].shape == (U, S * P)   # damp per-snapshot
-            for a, b in zip(g_pal, g_ref):
-                scale = float(jnp.abs(b).max()) + 1e-12
-                np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                           atol=3e-4 * scale)
-
-
-def test_fused_render_pack_first_prologue_matches():
-    """PACK_FIRST prologue ordering (pack raw inputs, trig on packed):
-    identical results to the default trig-then-pack, fwd + grads."""
-    from deepmimo_tpu.ops.pallas import render as R
-
-    rng = np.random.RandomState(3)
-    U, P, K = 20, 25, 16
-    mk = lambda lo, hi, *s: jnp.asarray(rng.uniform(lo, hi, s), jnp.float32)
-    args = (mk(-3, 3, U, P), mk(-3, 3, U, P), mk(-3, 3, U, P),
-            mk(-3, 3, U, P), mk(0, 1e-4, U, P), mk(-3, 3, 2 * U * P
-            // P * P).reshape(U, 2 * P), mk(0, 6, U, P))
-
-    def loss(a):
-        h = R.fused_render(*a, (2, 1), (2, 2), K, 8, True, "float32",
-                           True)
-        return jnp.sum(h ** 2), h
-
-    assert not R.PACK_FIRST
-    (l0, h0), g0 = jax.value_and_grad(loss, has_aux=True)(args)
-    try:
-        R.PACK_FIRST = True
-        jax.clear_caches()        # trace-time flag: drop cached traces
-        (l1, h1), g1 = jax.value_and_grad(loss, has_aux=True)(args)
-    finally:
-        R.PACK_FIRST = False
-        jax.clear_caches()
-    np.testing.assert_allclose(np.asarray(h1), np.asarray(h0), atol=1e-9)
-    for a, b in zip(g1, g0):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   atol=1e-9)
-
-
-def test_fused_render_large_path_count_legacy_layout():
-    """P > 64 falls back to the legacy one-user-per-row layout (group 1,
-    lanes ceil(P, 128)) — pin its fwd + bwd correctness."""
-    from deepmimo_tpu.ops.pallas import render as R
-
-    assert R._grouping(80) == (1, 128)
-    assert R._grouping(25) == (4, 32)
-    assert R._grouping(40) == (2, 64)
-    rng = np.random.RandomState(6)
-    U, P, K = 12, 80, 8
-    mk = lambda lo, hi, *s: jnp.asarray(rng.uniform(lo, hi, s), jnp.float32)
-    args = (mk(-3, 3, U, P), mk(-3, 3, U, P), mk(-3, 3, U, P),
-            mk(-3, 3, U, P), mk(0, 1e-4, U, P), mk(-3, 3, U, P),
-            mk(0, 6, U, P))
-    ref = R._reference_impl(*args, (2, 1), (2, 2), K)
-    out = R.fused_render(*args, (2, 1), (2, 2), K, 8, True)
-    for a, b in zip(ref, out):
-        scale = float(jnp.abs(a).max())
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   atol=3e-5 * scale)
-
-    def loss(a):
-        hr, hi = R.fused_render(*a, (2, 1), (2, 2), K, 8, True)
-        return jnp.sum(hr ** 2 + hi ** 2)
-
-    def loss_ref(a):
-        hr, hi = R._reference_impl(*a, (2, 1), (2, 2), K)
-        return jnp.sum(hr ** 2 + hi ** 2)
-
-    g1, g2 = jax.grad(loss)(args), jax.grad(loss_ref)(args)
-    for a, b in zip(g1, g2):
-        scale = float(jnp.abs(b).max()) + 1e-12
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   atol=3e-4 * scale)
-
-
-def test_fused_render_bf16_output_mode():
+def test_fused_render_bf16_output_mode(route):
     """out_dtype='bfloat16' serving mode: half the H bytes, ~2^-8 rel
     rounding vs the f32 output; grads still flow (f32 chain)."""
-    import dataclasses
-    import sys
-    sys.path.insert(0, "tests")
-    from oracle import make_synthetic_paths
-    from deepmimo_tpu.ops.types import (PathData, AntennaPanel,
-                                        ChannelConfig)
-    from deepmimo_tpu.ops.channel import (render_channels_planes,
-                                          unpack_planes_np)
-    from deepmimo_tpu.ops.pallas import render as R
+    from deepmimo_tpu.ops.channel import unpack_planes_np
 
-    data = make_synthetic_paths(n_ue=16, max_paths=6, seed=21)
-    paths = PathData.from_numpy(
-        power=data["power"], phase=data["phase"], delay=data["delay"],
-        aoa_az=data["aoa_az"], aoa_el=data["aoa_el"],
-        aod_az=data["aod_az"], aod_el=data["aod_el"], dtype=jnp.float32)
+    paths = _paths(16, 6, 21)
     bs, ue = AntennaPanel.make((5, 0, 20)), AntennaPanel.make()
-    for layout in ("packed", "stacked"):
-        cfg32 = ChannelConfig(bs_shape=(4, 2), ue_shape=(1, 1),
-                              freq_domain=True, subcarriers=64,
-                              selected_subcarriers=tuple(range(16)),
-                              num_paths=6, backend="fused",
-                              planes_layout=layout)
-        cfg16 = dataclasses.replace(cfg32, out_dtype="bfloat16")
-        h32 = render_channels_planes(paths, bs, ue, cfg32)
-        h16 = render_channels_planes(paths, bs, ue, cfg16)
-        assert h16.dtype == jnp.bfloat16 and h32.dtype == jnp.float32
-        scale = float(jnp.abs(h32).max())
-        np.testing.assert_allclose(np.asarray(h16, np.float32),
-                                   np.asarray(h32), atol=2 ** -7 * scale)
-        # unpack widens to complex64
-        hc = unpack_planes_np(np.asarray(h16), cfg16)
-        assert hc.dtype == np.complex64
+    for kernel in (True, False):
+        route(kernel)
+        for layout in ("packed", "stacked"):
+            cfg32 = ChannelConfig(bs_shape=(4, 2), ue_shape=(1, 1),
+                                  freq_domain=True, subcarriers=64,
+                                  selected_subcarriers=tuple(range(64)),
+                                  num_paths=6, planes_layout=layout)
+            cfg16 = dataclasses.replace(cfg32, out_dtype="bfloat16")
+            h32 = C.render_channels_planes(paths, bs, ue, cfg32)
+            h16 = C.render_channels_planes(paths, bs, ue, cfg16)
+            assert h16.dtype == jnp.bfloat16 and h32.dtype == jnp.float32
+            scale = float(jnp.abs(h32).max())
+            np.testing.assert_allclose(np.asarray(h16, np.float32),
+                                       np.asarray(h32), atol=2 ** -7 * scale)
+            assert unpack_planes_np(np.asarray(h16), cfg16).dtype == \
+                np.complex64
 
-    # XLA (non-fused) planes path honors out_dtype too
-    cfg_x = dataclasses.replace(cfg32, backend="xla")
-    cfg_x16 = dataclasses.replace(cfg_x, out_dtype="bfloat16")
-    hx16 = render_channels_planes(paths, bs, ue, cfg_x16)
-    assert hx16.dtype == jnp.bfloat16
-
-    # gradients flow through the bf16 output (cast back to f32 chain)
-    rng = np.random.RandomState(0)
-    mk = lambda *s: jnp.asarray(rng.uniform(-1, 1, s), jnp.float32)
-    args = (mk(8, 5), mk(8, 5), mk(8, 5), mk(8, 5),
-            jnp.abs(mk(8, 5)) * 1e-3, mk(8, 5), jnp.abs(mk(8, 5)))
+    args = _scalars(8, 5)
 
     def loss(a):
-        h = R.fused_render(*a, (1, 1), (2, 2), 8, 8, True, "float32",
-                           True, "bfloat16")
+        h = R.fused_render(*a, (1, 1), (2, 2), 16, packed=True,
+                           out_dtype="bfloat16")
         return jnp.sum(h.astype(jnp.float32) ** 2)
 
     g = jax.grad(loss)(args)
@@ -560,87 +287,123 @@ def test_fused_render_bf16_output_mode():
     assert any(float(jnp.abs(x).max()) > 0 for x in g)
 
 
-def test_fused_render_per_snapshot_amp_legacy_layout():
-    """Per-snapshot amplitudes on the g=1 legacy layout (P > 64)."""
-    from deepmimo_tpu.ops.pallas import render as R
+@pytest.mark.parametrize("path", ["fused", "xla"])
+def test_calibration_gradients_match_float64(path, route):
+    """Calibration gradients through each product branch (the kernel's
+    unit-vector prologue + custom VJP, or the XLA angle path) equal the
+    float64 gradient leaf by leaf, with paths 0.002 deg from both poles
+    (where an arccos of the float32 cosine loses the angle). Leaves whose
+    float64 gradient is exactly zero (the single-antenna UE's rotation and
+    spacing, the arrival angles) must be zero too."""
+    from deepmimo_tpu.parallel.sharded import (calib_loss_planes,
+                                               init_calib_params)
 
-    rng = np.random.RandomState(8)
-    U, P, K, S = 10, 72, 8, 2
-    assert R._grouping(P)[0] == 1
-    mk = lambda lo, hi, *s: jnp.asarray(rng.uniform(lo, hi, s), jnp.float32)
-    args = (mk(-3, 3, U, P), mk(-3, 3, U, P), mk(-3, 3, U, P),
-            mk(-3, 3, U, P), mk(0, 1e-3, U, S * P),
-            mk(-3, 3, U, S * P), mk(0, 6, U, P))
-    ref = R._reference_impl(*args, (1, 1), (2, 2), K)
-    out = R.fused_render(*args, (1, 1), (2, 2), K, 8, True)
-    for a, b in zip(ref, out):
-        scale = float(jnp.abs(a).max())
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   atol=3e-5 * scale)
-    ct = mk(-1, 1, 2, U, 4, S * K)
-    g_pal = R._bwd_impl(*args, ct, (1, 1), (2, 2), K, 8, True,
-                        "float32", False)
-    g_ref = R._bwd_xla((1, 1), (2, 2), K, False, args, ct)
-    for a, b in zip(g_pal, g_ref):
-        scale = float(jnp.abs(b).max()) + 1e-12
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   atol=3e-4 * scale)
+    data = make_synthetic_paths(n_ue=16, max_paths=8, seed=7)
+    data["aod_el"][:4, 0] = [0.002, 179.998, 0.002, 179.998]
+    data["power"][:4, 0] = np.nanmax(data["power"])
+    paths = PathData.from_numpy(*(data[k] for k in (
+        "power", "phase", "delay", "aoa_az", "aoa_el", "aod_az", "aod_el")))
+    cfg = ChannelConfig(bs_shape=(4, 4), ue_shape=(1, 1), subcarriers=512,
+                        selected_subcarriers=tuple(range(16)), num_paths=8)
+    route(path == "fused")
+    ue = AntennaPanel.make()
+    target = C.render_channels_planes(
+        paths, AntennaPanel.make((0, 0, 10), spacing=0.55), ue, cfg)
+    params = init_calib_params(paths, AntennaPanel.make(), ue)
+    grad = jax.grad(calib_loss_planes)
+    got = grad(params, paths, target, cfg)
+
+    to64 = lambda t: jax.tree_util.tree_map(
+        lambda x: x.astype(jnp.float64) if x.dtype == jnp.float32 else x, t)
+    cfg64 = dataclasses.replace(cfg, dtype="complex128")      # plain XLA
+    ref = grad(to64(params), to64(paths), target.astype(jnp.float64), cfg64)
+    for g, r in zip(jax.tree.leaves(got), jax.tree.leaves(ref)):
+        g, r = np.asarray(g, np.float64), np.asarray(r)
+        if g.ndim == 3:                      # d_angles: one leaf per angle
+            g, r = np.moveaxis(g, -1, 0), np.moveaxis(r, -1, 0)
+        else:
+            g, r = g[None], r[None]
+        for gi, ri in zip(g, r):
+            scale = np.abs(ri).max()
+            if scale == 0:
+                assert np.abs(gi).max() == 0
+            else:
+                assert np.abs(gi - ri).max() < 5e-5 * scale
 
 
-def test_layout_flags_live_in_jit_cache_key():
-    """config kernel_no_pack/kernel_pack_first flow into ChannelConfig and
-    hence every jit cache key: toggling AFTER a traced render retraces
-    with the new layout instead of returning a stale kernel (round-4
-    VERDICT weak #5 — module globals were read at trace time only).
-    """
-    import deepmimo_tpu as dm
-    from deepmimo_tpu.config import config
-    from deepmimo_tpu.ops.pallas import render as R
+# (name, platform, cfg overrides, kernel expected)
+CHOICE_CASES = [
+    ("gpu_eligible", "gpu", {}, True),
+    ("gpu_time_domain", "gpu", dict(freq_domain=False), False),
+    ("gpu_rx_filter", "gpu", dict(rx_filter=True), False),
+    ("gpu_complex128", "gpu", dict(dtype="complex128"), False),
+    ("gpu_irregular_subcarriers", "gpu",
+     dict(selected_subcarriers=(0, 1, 5)), False),
+    ("gpu_doppler_slots", "gpu",
+     dict(enable_doppler=True, doppler_times=(0.0, 1e-3)), True),
+    ("cpu_eligible", "cpu", {}, False),
+]
 
-    # Explicit no_pack overrides beat the module global.
-    assert R._grouping(25, no_pack=True) == (1, 128)
-    assert R._grouping(25, no_pack=False) == (4, 32)
 
-    rng = np.random.RandomState(3)
-    U, P = 40, 25
-    n_valid = rng.randint(1, P + 1, size=U)
-    mask = np.arange(P)[None, :] < n_valid[:, None]
+@pytest.mark.parametrize("case", CHOICE_CASES,
+                         ids=[c[0] for c in CHOICE_CASES])
+def test_backend_choice(case, monkeypatch):
+    """gpu -> kernel when eligible, otherwise XLA; the product never asks
+    the kernel for interpret mode (it is traced here, not run)."""
+    _, platform, overrides, expect_kernel = case
+    kw = dict(bs_shape=(4, 2), ue_shape=(1, 1), subcarriers=64,
+              selected_subcarriers=tuple(range(16)), num_paths=6)
+    cfg = ChannelConfig(**{**kw, **overrides})
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    assert C._use_render_kernel(cfg) is expect_kernel
+    calls = []
+    real = R.fused_render
+    monkeypatch.setattr(R, "fused_render",
+                        lambda *a, **k: calls.append(k) or real(*a, **k))
+    paths = _paths(8, 6, 4)
+    bs, ue = AntennaPanel.make(), AntennaPanel.make()
+    # Trace only: the Triton lowering never runs on this host.
+    jax.eval_shape(lambda p: C.render_channels_planes.__wrapped__(
+        p, bs, ue, cfg), paths)
+    assert len(calls) == int(expect_kernel)
+    assert all(not k.get("interpret", False) for k in calls)
 
-    def mat(lo, hi):
-        a = rng.uniform(lo, hi, (U, P)).astype(np.float32)
-        return np.where(mask, a, np.nan).astype(np.float32)
 
-    ds = dm.Dataset({
-        "power": mat(-120, -60), "phase": mat(-180, 180),
-        "delay": mat(1e-7, 2e-6),
-        "aoa_az": mat(-180, 180), "aoa_el": mat(0, 180),
-        "aod_az": mat(-180, 180), "aod_el": mat(0, 180),
-        "rx_pos": np.zeros((U, 3), np.float32),
-        "tx_pos": np.zeros((1, 3), np.float32),
-    })
-    params = dm.ChannelGenParameters()
-    params["bs_antenna"]["shape"] = np.array([4, 2])
-    params["ofdm"]["selected_subcarriers"] = np.arange(64)
+@pytest.mark.parametrize("n_q,n_paths,n_sk,rows,cols", [
+    (64, 25, 64, 64, 32),     # headline widths
+    (4, 3, 1, 16, 16),        # tiny: floors of 16 for the dots
+    (1024, 80, 512, 64, 32),  # wide: capped blocks
+])
+def test_pick_tiles_shapes(n_q, n_paths, n_sk, rows, cols):
+    t = R.pick_tiles(n_q, n_sk)
+    assert (t.rows, t.cols) == (rows, cols)
+    for side in (t.rows, t.cols, R._pow2(n_paths)):
+        assert side >= 16 and side & (side - 1) == 0
 
-    try:
-        h_default = ds.compute_channels(params)
-        cfg_default = params.to_config(U)[0]
-        assert not cfg_default.kernel_no_pack
 
-        config.set("kernel_no_pack", True)
-        cfg_nopack = params.to_config(U)[0]
-        assert cfg_nopack.kernel_no_pack
-        assert hash(cfg_nopack) != hash(cfg_default)   # distinct cache key
-        h_nopack = ds.compute_channels(params)
-        np.testing.assert_allclose(h_nopack, h_default, atol=2e-6)
+def test_dot_algorithm_mapping():
+    alg = jax.lax.DotAlgorithmPreset
+    assert R._dot_algorithm("float32", False) == alg.TF32_TF32_F32_X3
+    assert R._dot_algorithm("float32", True) == alg.F32_F32_F32
+    assert R._dot_algorithm("highest", False) == alg.F32_F32_F32
+    with pytest.raises(ValueError, match="matmul_dtype"):
+        R._dot_algorithm("float16", False)
 
-        config.set("kernel_no_pack", False)
-        config.set("kernel_pack_first", True)
-        cfg_pf = params.to_config(U)[0]
-        assert cfg_pf.kernel_pack_first
-        assert hash(cfg_pf) != hash(cfg_default)
-        h_pf = ds.compute_channels(params)
-        np.testing.assert_allclose(h_pf, h_default, atol=2e-6)
-    finally:
-        config.set("kernel_no_pack", False)
-        config.set("kernel_pack_first", False)
+
+GPU_CASES = [c for c in KERNEL_CASES
+             if c[0] in ("p_not_pow2", "ragged_row_block", "per_slot_amp",
+                         "ragged_column_blocks")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GPU_CASES, ids=[c[0] for c in GPU_CASES])
+def test_fused_render_compiled_matches_reference(case):
+    """The kernel as compiled for the card (TF32x3 dots) vs the reference."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs an NVIDIA GPU (compiled Triton kernel)")
+    _, u, p, rx, tx, k, s, slot_amp, packed, tiles = case
+    args = _scalars(u, p, s, slot_amp)
+    ref = R._reference_impl(*args, rx, tx, k)
+    h = jax.jit(lambda *a: R.fused_render(*a, rx, tx, k, packed=packed,
+                                          tiles=tiles))(*args)
+    assert _max_rel(_split(h, packed), ref) < 3e-5

@@ -55,8 +55,7 @@ def _params(**kw):
 def _force_fallback(ds, params, monkeypatch):
     """Channels via the 4x-independent-render fallback path."""
     from deepmimo_tpu.ops import channel as C
-    monkeypatch.setattr(C, "polar_fused_eligible",
-                        lambda cfg, n_pol=4: False)
+    monkeypatch.setattr(C, "fused_render_eligible", lambda cfg: False)
     try:
         return ds.compute_channels(params)
     finally:

@@ -4,7 +4,7 @@ Imports the upstream package from /root/reference (read-only) and runs its
 CPU generator on the same synthetic ray data, sweeping the BASELINE config
 matrix. This is the toolchain-equivalence guarantee: a reference user gets
 the same channels (to f32 accumulation tolerance — the reference accumulates
-in csingle) from the TPU build.
+in csingle) from this build.
 """
 
 import os
@@ -70,18 +70,15 @@ def _our_channels(data, params_fn, fov=None, mode="f64"):
     params = dm.ChannelGenParameters()
     params_fn(params)
     old_dt = config.get("compute_dtype")
-    old_be = config.get("render_backend")
     config.set("compute_dtype",
                "complex128" if mode == "f64" else "complex64")
-    config.set("render_backend", "xla" if mode == "f64" else "fused")
     try:
         return ds.compute_channels(params)
     finally:
         config.set("compute_dtype", old_dt)
-        config.set("render_backend", old_be)
 
 
-# f32 trig + f32 (MXU) accumulation vs the reference's complex128
+# f32 trig + f32 accumulation vs the reference's complex128
 # responses/csingle accumulation: tolerance tiers per mode.
 _TOL = {"f64": 3e-5, "production": 4e-4}
 

@@ -1,4 +1,4 @@
-"""Renderer correctness: fused TPU renderer vs the numpy oracle.
+"""Renderer correctness: the JAX renderer vs the numpy oracle.
 
 Covers the BASELINE configuration matrix: SISO narrowband TD, OFDM wideband,
 MIMO arrays, rotations + FoV + dipole patterns, and Doppler time snapshots.
@@ -232,7 +232,7 @@ def test_time_domain_compact_always_interior_holes():
 
 
 def test_float32_accuracy_vs_float64():
-    """The f32 TPU path stays within mixed-precision tolerance of f64."""
+    """The f32 path stays within mixed-precision tolerance of f64."""
     data = make_synthetic_paths(n_ue=16, max_paths=8, seed=20)
     kw = dict(bs_shape=(4, 2), ue_shape=(2, 1), freq_domain=True,
               subcarriers=64, selected_subcarriers=(0, 5, 20), num_paths=8)
@@ -268,3 +268,30 @@ def test_rx_filter_full_band_fft_path():
                           selected_subcarriers=tuple(range(n_fft)),
                           rx_filter=True, num_paths=3)
     np.testing.assert_allclose(full, ref, atol=1e-10)
+
+
+@pytest.mark.parametrize("n_sel", [16, 64])
+def test_rx_filter_complex64_product_path(n_sel):
+    """compute_channels with the sinc receive filter at complex64 matches
+    the float64 oracle, including 64 subcarriers under the product's
+    packed plane layout (that config renders complex H and stacks it)."""
+    import deepmimo_tpu as dm
+
+    keys = ("power", "phase", "delay", "aoa_az", "aoa_el", "aod_az",
+            "aod_el")
+    data = make_synthetic_paths(n_ue=12, max_paths=6, seed=24)
+    ds = dm.Dataset({**{k: np.float32(data[k]) for k in keys},
+                     "rx_pos": np.zeros((12, 3), np.float32),
+                     "tx_pos": np.zeros((1, 3), np.float32)})
+    params = dm.ChannelGenParameters()
+    params["bs_antenna"]["shape"] = np.array([4, 2])
+    params["num_paths"] = 6
+    params["ofdm"]["selected_subcarriers"] = np.arange(n_sel)
+    params["ofdm"]["rx_filter"] = 1
+    got = ds.compute_channels(params)
+    ref = oracle_channels(*(np.float32(data[k]).astype(np.float64)
+                            for k in keys), bs_shape=(4, 2),
+                          selected_subcarriers=np.arange(n_sel),
+                          rx_filter=True, num_paths=6)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=5e-5 * np.abs(ref).max())

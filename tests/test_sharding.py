@@ -109,12 +109,11 @@ def test_training_step_loss_decreases():
 def test_training_step_planes_matches_complex_loss():
     """The planes-path calibration (fused Pallas fwd+bwd) reproduces the
     complex-path loss value and decreases it over steps."""
-    import dataclasses
     from deepmimo_tpu.ops.channel import render_channels_planes
     from deepmimo_tpu.parallel.sharded import (calib_loss_planes,
                                                training_step_planes)
 
-    cfg = dataclasses.replace(CFG, backend="fused")
+    cfg = CFG
     paths = _paths(n_ue=16, seed=52)
     bs, ue = AntennaPanel.make((0, 0, 0)), AntennaPanel.make()
     params = init_calib_params(paths, bs, ue)
